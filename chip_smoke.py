@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (gpusorting_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Needs a CUDA card; exits non-zero, printing no result, without one or
+outside a checkout of the repository.  Phases, each fatal on failure:
+
+  1. build the relocate kernel from csrc/relocate.cu and hold the range
+     exchange's kernel (method="dma") bit for bit against its plain PyTorch
+     version (method="gather") on the card, for 1 and 4 planes, at n = 2^28
+     with L = 2^21 (K = 128), on uniform, E020 and all-equal keys;
+  2. the main path at n = 2^28 through the public entry points under
+     Backend.AUTO: sort on uint32 / int32 / float32 keys (the floats with
+     NaN, +-0 and +-inf injected), sort_pairs with a uint32 and with an
+     int64 payload, and argsort, each ascending and descending.  Every
+     output is held bit for bit against flat torch.sort(stable=True) over
+     the same codes, pairs also against the payload == key stability
+     oracle; the relocate launch count shows each went through the kernel;
+  3. times with CUDA events (utils/timing.py): end to end for the AUTO
+     (rangesweep) route and the flat torch.sort route, per phase of the
+     engine, and the relocate kernel beside its bound and its plain version,
+     for keys, pairs and argsort.
+
+Every JSON line carries the card's name and power limit as nvidia-smi gives
+them.  The line before the last lists the kernels; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+N = 1 << 28
+L = 1 << 21
+LANES = 128
+SEED = 2024
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+
+    import gpusorting_tpu_torch as gstt
+    from gpusorting_tpu_torch.core import codec, prng
+    from gpusorting_tpu_torch.ops import relocate, rangesweep as rs
+    from gpusorting_tpu_torch.utils import timing, validate
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = _card()
+    print(card, flush=True)
+    info = gstt.get_device_info(dev)
+    _require(info.hbm_gbps > 0,
+             f"no memory rate known for {info.device_kind}")
+
+    def emit(**rec) -> None:
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+
+    def free() -> None:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def median_ms(fn, iters=5) -> float:
+        return statistics.median(timing.device_time_ms(fn, iters=iters,
+                                                       device=dev))
+
+    K = -(-N // L)
+    l_rows = L // LANES
+
+    # ---- phase 1: build, and the kernel against its plain version --------
+    t0 = time.perf_counter()
+    relocate.build()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         source="gpusorting_tpu_torch/csrc/relocate.cu")
+
+    max_abs_err = 0
+    for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
+                                 ("E020", gstt.EntropyPreset.E020, False),
+                                 ("all_equal", None, True)):
+        if equal:
+            x = torch.full((N,), 0x1234ABCD, dtype=torch.int32, device=dev)
+        else:
+            x = codec.encode_biased(prng.make_test_keys(
+                N, SEED, torch.uint32, entropy, device=dev))
+        x2 = rs._phase_sort_keys(x.view(K, L))
+        bounds = rs._cuts(x2, K, L, heads=x2[:, ::LANES])
+        extra = tuple(codec.encode_biased(prng.hybrid_taus_bits(
+            N, SEED + j, device=dev)).view(K, L) for j in (1, 2, 3))
+        for planes in ((x2,), (x2,) + extra):
+            got = rs._range_exchange(planes, bounds, K, L, method="dma")
+            want = rs._range_exchange(planes, bounds, K, L, method="gather")
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                max_abs_err = max(max_abs_err, err)
+                _require(torch.equal(g, w),
+                         f"relocate != plain on {name}, {len(planes)} planes")
+            emit(phase="kernel_vs_plain", input=name, planes=len(planes),
+                 n=N, K=K, L=L, bit_exact=True)
+            del got, want
+        del x, x2, extra, bounds
+        free()
+
+    # ---- phase 2: the main path through the public entry points ----------
+    def oracle_perm(keys):
+        return torch.sort(codec.encode_biased(keys), stable=True).indices
+
+    def flip(t, order):
+        return torch.flip(t, (0,)) if order == gstt.Order.DESCENDING else t
+
+    def bits(t):
+        # signed carrier view: torch's uint32 has no indexing or flip
+        return t.view(torch.int32 if t.dtype.itemsize == 4 else torch.int64)
+
+    def same_bits(out, src, perm, order) -> bool:
+        """out == src permuted by the oracle, bit for bit."""
+        return out.dtype == src.dtype and torch.equal(
+            bits(out), flip(bits(src)[perm], order))
+
+    specials = torch.tensor(
+        [0x7FC00000, 0xFFC00000, 0x00000000, 0x80000000, 0x7F800000,
+         0xFF800000], dtype=torch.int64, device=dev)
+    specials = ((specials ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+    def f32_keys():
+        k = prng.make_test_keys(N, SEED + 5, torch.float32, device=dev)
+        pos = torch.arange(0, N, 9973, device=dev)
+        k.view(torch.int32)[pos] = specials[pos % specials.numel()]
+        return k
+
+    orders = (gstt.Order.ASCENDING, gstt.Order.DESCENDING)
+    runs = []
+    relocate.relocate.launches = 0
+    for kname, make, expect in (
+            ("sort_u32", lambda: prng.make_test_keys(
+                N, SEED + 4, torch.uint32, device=dev), 1),
+            ("sort_i32", lambda: prng.make_test_keys(
+                N, SEED + 6, torch.int32, gstt.EntropyPreset.E054,
+                device=dev), 1),
+            ("sort_f32", f32_keys, 1)):
+        keys = make()
+        perm = oracle_perm(keys)
+        for order in orders:
+            before = relocate.relocate.launches
+            out = gstt.sort(keys, order=order)
+            torch.cuda.synchronize()
+            delta = relocate.relocate.launches - before
+            _require(same_bits(out, keys, perm, order),
+                     f"{kname} {order.value} != torch.sort")
+            _require(delta == expect, f"{kname}: {delta} relocate launches")
+            runs.append((kname, order.value, delta))
+            del out
+        del keys, perm
+        free()
+
+    for pname, pdtype, expect in (("sort_pairs_u32", torch.uint32, 3),
+                                  ("sort_pairs_i64", torch.int64, 4)):
+        keys, vals = prng.make_test_pairs(N, SEED + 7, torch.uint32, pdtype,
+                                          gstt.EntropyPreset.E033,
+                                          device=dev)
+        perm = oracle_perm(keys)
+        for order in orders:
+            before = relocate.relocate.launches
+            ok, ov = gstt.sort_pairs(keys, vals, order=order)
+            torch.cuda.synchronize()
+            delta = relocate.relocate.launches - before
+            _require(same_bits(ok, keys, perm, order)
+                     and same_bits(ov, vals, perm, order),
+                     f"{pname} {order.value} != torch.sort")
+            _require(int(validate.count_pair_violations(ok, ov, order)) == 0,
+                     f"{pname} {order.value}: stability oracle violated")
+            _require(delta == expect, f"{pname}: {delta} relocate launches")
+            runs.append((pname, order.value, delta))
+            del ok, ov
+        del keys, vals, perm
+        free()
+
+    keys = prng.make_test_keys(N, SEED + 8, torch.uint32,
+                               gstt.EntropyPreset.E081, device=dev)
+    perm = oracle_perm(keys).to(torch.int32)
+    for order in orders:
+        before = relocate.relocate.launches
+        out = gstt.argsort(keys, order=order)
+        torch.cuda.synchronize()
+        delta = relocate.relocate.launches - before
+        _require(torch.equal(out, flip(perm, order)),
+                 f"argsort {order.value} != torch.sort")
+        _require(delta == 2, f"argsort: {delta} relocate launches")
+        runs.append(("argsort", order.value, delta))
+        del out
+    del keys, perm
+    free()
+    main_path_launches = relocate.relocate.launches
+    _require(main_path_launches > 0, "the main path never launched relocate")
+    emit(phase="main_path", n=N, launches=main_path_launches,
+         runs=[{"call": c, "order": o, "relocate_launches": d}
+               for c, o, d in runs], bit_exact=True)
+
+    # ---- phase 3: times --------------------------------------------------
+    bw = info.hbm_gbps * 1e9
+    batch = 5
+    payload = torch.arange(N, dtype=torch.int32, device=dev)
+    e2e = {}
+    for what, auto_fn, flat_fn in (
+            ("keys", lambda k: gstt.sort(k),
+             lambda k: gstt.sort(k, backend=gstt.Backend.XLA)),
+            ("pairs", lambda k: gstt.sort_pairs(k, payload),
+             lambda k: gstt.sort_pairs(k, payload,
+                                       backend=gstt.Backend.XLA)),
+            ("argsort", lambda k: gstt.argsort(k),
+             lambda k: gstt.argsort(k, backend=gstt.Backend.XLA))):
+        res = {}
+        for route, fn in (("auto_rangesweep", auto_fn),
+                          ("flat_torch_sort", flat_fn),
+                          ("auto_rangesweep_2", auto_fn),
+                          ("flat_torch_sort_2", flat_fn)):
+            r = timing.batch_timing(fn, N, batch=batch, seed=SEED,
+                                    device=dev)
+            res[route] = r["seconds_per_sort"] * 1e3
+            emit(phase="end_to_end", what=what, route=route, n=N,
+                 batch=batch, ms=r["seconds_per_sort"] * 1e3,
+                 spread_ms=[r["spread_min_s"] * 1e3,
+                            r["spread_max_s"] * 1e3],
+                 keys_per_sec=r["keys_per_sec"])
+            free()
+        e2e[what] = res
+    del payload
+    free()
+
+    relocate_ms = relocate_plain_ms = relocate_bound_ms = None
+    for what in ("keys", "pairs", "argsort"):
+        keys = codec.encode_biased(prng.make_test_keys(
+            N, SEED, torch.uint32, device=dev))
+        if what == "keys":
+            x2 = rs._phase_sort_keys(keys.view(K, L))
+            p1_ms = median_ms(lambda: rs._phase_sort_keys(keys.view(K, L)))
+            planes = (x2,)
+        else:
+            idx = torch.arange(N, dtype=torch.int32, device=dev)
+            raw = (keys.view(K, L), idx.view(K, L))
+            if what == "pairs":
+                raw = raw + (idx.view(K, L).clone(),)
+            planes = rs._phase_sort_pairs(raw)
+            p1_ms = median_ms(lambda: rs._phase_sort_pairs(raw))
+        heads = planes[0][:, ::LANES]
+        bounds, v = rs._cuts(planes[0], K, L, heads=heads,
+                             return_splitters=True)
+        cuts_ms = median_ms(lambda: rs._cuts(planes[0], K, L, heads=heads,
+                                             return_splitters=True))
+        ctrl, fringes = rs._exchange_prep(planes, bounds, K, L)
+        prep_ms = median_ms(lambda: rs._exchange_prep(planes, bounds, K, L))
+        srcs = [p.reshape(-1, LANES) for p in planes]
+        kern = lambda: [relocate.relocate(ctrl, s, f, K, l_rows, 2 * K)
+                        for s, f in zip(srcs, fringes)]
+        plain = lambda: [relocate.relocate_plain(ctrl, s, f, K, l_rows,
+                                                 2 * K)
+                         for s, f in zip(srcs, fringes)]
+        ex = kern()
+        reloc_ms = median_ms(kern)
+        plain_ms = median_ms(plain, iters=3)
+        bound_ms = len(planes) * (8 * N + 4 * ctrl.numel()) / bw * 1e3
+        if what == "keys":
+            # uniform keys flag no constant bucket, so phase 3 is not in
+            # place here and may run again on the same buckets
+            out = ex[0].view(K, L)
+            p3 = rs._phase3_keys(out, v)
+            p3_ms = median_ms(lambda: rs._phase3_keys(out, v))
+            _require(torch.equal(p3.reshape(-1), torch.sort(keys).values),
+                     "keys phases composed != torch.sort")
+            relocate_ms, relocate_plain_ms = reloc_ms, plain_ms
+            relocate_bound_ms = bound_ms
+        else:
+            ex2 = tuple(e.view(K, L) for e in ex)
+            p3 = rs._phase_sort_pairs(ex2)
+            p3_ms = median_ms(lambda: rs._phase_sort_pairs(ex2))
+            want = torch.sort(keys, stable=True)
+            _require(torch.equal(p3[0].reshape(-1), want.values) and
+                     torch.equal(p3[1].reshape(-1).long(), want.indices),
+                     f"{what} phases composed != torch.sort")
+        emit(phase="per_phase", what=what, n=N, K=K, L=L,
+             planes=len(planes), phase1_ms=p1_ms, cuts_ms=cuts_ms,
+             prep_ms=prep_ms, relocate_ms=reloc_ms,
+             relocate_plain_ms=plain_ms, relocate_bound_ms=bound_ms,
+             phase3_ms=p3_ms, sum_ms=p1_ms + cuts_ms + prep_ms + reloc_ms
+             + p3_ms, end_to_end_auto_ms=e2e[what]["auto_rangesweep"],
+             end_to_end_flat_torch_sort_ms=e2e[what]["flat_torch_sort"])
+        del keys, planes, ex, p3, ctrl, fringes, srcs
+        free()
+
+    print(json.dumps({"kernels": [{
+        "name": "relocate_rows",
+        "route": "cuda",
+        "source": "gpusorting_tpu_torch/csrc/relocate.cu",
+        "replaces": "gpusorting_tpu/ops/rangesweep.py:280",
+        "launches": main_path_launches,
+        "max_abs_err": max_abs_err,
+        "ms": relocate_ms,
+        "plain_ms": relocate_plain_ms,
+        "bound_ms": relocate_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "card": card,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

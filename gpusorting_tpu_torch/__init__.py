@@ -1,0 +1,58 @@
+"""gpusorting_tpu_torch — the PyTorch/CUDA port of gpusorting_tpu.
+
+A second package beside the JAX one, for NVIDIA Hopper: the same public
+entry points, key codes, stability and descending rules, held bit-exact
+against `gpusorting_tpu` on the same inputs.  It imports neither JAX nor
+the JAX package.  Entry points compute on the device of the tensor given;
+every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
+kernel (so far: the range-exchange relocate, `csrc/relocate.cu`).
+
+Quick start:
+    import gpusorting_tpu_torch as gstt
+    out = gstt.sort(keys_cuda)                 # stable ascending
+    k, v = gstt.sort_pairs(keys_cuda, values)  # stable pair sort
+"""
+
+from .core.config import (
+    Backend,
+    DeviceInfo,
+    EntropyPreset,
+    KeyType,
+    Mode,
+    Order,
+    PayloadType,
+    RoutingParameters,
+    SortConfig,
+    auto_engine,
+    clear_routing_override,
+    get_device_info,
+    get_routing_parameters,
+    routing_from_jax_fields,
+    set_routing_override,
+)
+from .ops import argsort, sort, sort_batched, sort_pairs, sort_pairs_wide
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Backend",
+    "DeviceInfo",
+    "EntropyPreset",
+    "KeyType",
+    "Mode",
+    "Order",
+    "PayloadType",
+    "RoutingParameters",
+    "SortConfig",
+    "argsort",
+    "auto_engine",
+    "clear_routing_override",
+    "get_device_info",
+    "get_routing_parameters",
+    "routing_from_jax_fields",
+    "set_routing_override",
+    "sort",
+    "sort_batched",
+    "sort_pairs",
+    "sort_pairs_wide",
+]

@@ -1,0 +1,299 @@
+"""Configuration types for the PyTorch/CUDA sort engine.
+
+Port of `gpusorting_tpu/core/config.py`:
+  - enums MODE/ORDER/KEY_TYPE/PAYLOAD_TYPE/ENTROPY_PRESET and `Backend`
+    (reference: GPUSortingD3D12/GPUSorting.h:14-87)
+  - `DeviceInfo`, probed from the tensor's device with
+    `torch.cuda.get_device_properties` (reference: GPUSortingD3D12.cpp:18-81)
+  - `RoutingParameters`, its per-card table and overrides, and the single
+    AUTO routing decision `auto_engine`.
+
+The TPU tile table (`TuningParameters`) serves only `Backend.PALLAS`, whose
+engines are not ported yet, so it is not here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import functools
+
+import torch
+
+
+class Mode(enum.Enum):
+    """Sorting mode (reference: GPUSorting.h `GPU_SORTING_MODE`)."""
+
+    KEYS_ONLY = "keys_only"
+    PAIRS = "pairs"
+
+
+class Order(enum.Enum):
+    """Sort direction (reference: GPUSorting.h `GPU_SORTING_ORDER`).
+
+    Descending is the element-wise reverse of the stable ascending output
+    (SortCommon.hlsl `DescendingIndex`): ties appear in reverse input order.
+    """
+
+    ASCENDING = "ascending"
+    DESCENDING = "descending"
+
+
+class KeyType(enum.Enum):
+    """Key element type (reference: GPUSorting.h `GPU_SORTING_KEY_TYPE`)."""
+
+    UINT32 = "uint32"
+    INT32 = "int32"
+    FLOAT32 = "float32"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return {"uint32": torch.uint32, "int32": torch.int32,
+                "float32": torch.float32}[self.value]
+
+
+class PayloadType(enum.Enum):
+    """Payload element type (reference: GPUSorting.h `GPU_SORTING_PAYLOAD_TYPE`).
+
+    The 64-bit types ride the pair sorts as two int32 planes (lo, hi);
+    torch's signed `int64` is accepted beside `uint64`.
+    """
+
+    UINT32 = "uint32"
+    INT32 = "int32"
+    FLOAT32 = "float32"
+    UINT64 = "uint64"
+    FLOAT64 = "float64"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return {
+            "uint32": torch.uint32,
+            "int32": torch.int32,
+            "float32": torch.float32,
+            "uint64": torch.uint64,
+            "float64": torch.float64,
+        }[self.value]
+
+
+class EntropyPreset(enum.IntEnum):
+    """Thearling–Smith entropy presets (reference: Utility.hlsl:65-75).
+
+    Preset k ANDs (k-1) extra PRNG draws into each key:
+      1 -> 1.000 bits/bit, 2 -> .811, 3 -> .544, 4 -> .337, 5 -> .201
+    """
+
+    E100 = 1
+    E081 = 2
+    E054 = 3
+    E033 = 4
+    E020 = 5
+
+    @property
+    def and_count(self) -> int:
+        return int(self) - 1
+
+    @property
+    def bits_per_bit(self) -> float:
+        return {1: 1.0, 2: 0.811, 3: 0.544, 4: 0.337, 5: 0.201}[int(self)]
+
+
+class Backend(enum.Enum):
+    """Which compute path executes the sort.
+
+    XLA     — the flat library sort: `torch.sort(stable=True)` over the key
+              codes (CUB on CUDA, the reference's own oracle).  The name is
+              kept from the JAX package, where this role is `jax.lax.sort`.
+    PALLAS  — the hand-written radix engines; not ported yet.
+    AUTO    — `auto_engine()` picks per size and device: on a CUDA card
+              with a routing row, sorts at or above the row's thresholds
+              run the range-exchange engine (ops/rangesweep.py); all else
+              runs the flat sort.
+    """
+
+    XLA = "xla"
+    PALLAS = "pallas"
+    AUTO = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceInfo:
+    """Device capability probe (reference: GetDeviceInfo,
+    GPUSortingD3D12.cpp:18-81).  `hbm_gbps` is the data-sheet memory rate
+    (GB/s) the bound of a memory-bound kernel is computed from; 0.0 where
+    the card is not in `_CUDA_HBM_GBPS`."""
+
+    platform: str        # "cuda" or "cpu"
+    device_kind: str     # torch.cuda.get_device_name, or "cpu"
+    generation: str      # routing-table key: "h100", "cuda", "cpu"
+    num_devices: int
+    hbm_bytes: int
+    hbm_gbps: float
+
+
+# Data-sheet HBM rates in GB/s, matched against the lower-cased device name
+# (NVIDIA H100 data sheet: the SXM card, whose name ends in "HBM3").  A card
+# gets its row when a run on it needs one.
+_CUDA_HBM_GBPS = (
+    ("h100 80gb hbm3", 3350.0),
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _probe(device: str) -> DeviceInfo:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return DeviceInfo(platform=dev.type, device_kind=dev.type,
+                          generation=dev.type, num_devices=1, hbm_bytes=0,
+                          hbm_gbps=0.0)
+    props = torch.cuda.get_device_properties(dev)
+    name = props.name
+    low = name.lower()
+    bw = next((r for k, r in _CUDA_HBM_GBPS if k in low), 0.0)
+    return DeviceInfo(platform="cuda", device_kind=name,
+                      generation="h100" if "h100" in low else "cuda",
+                      num_devices=torch.cuda.device_count(),
+                      hbm_bytes=props.total_memory, hbm_gbps=bw)
+
+
+def get_device_info(device: torch.device | str | None = None) -> DeviceInfo:
+    """Probe `device` (a tensor's device); None probes the current CUDA
+    card, or the CPU where torch sees no card."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _probe(str(dev))
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutingParameters:
+    """Routing thresholds and chunk lengths of the range-exchange engine.
+
+    The JAX package's row carries more fields (segmented-sort windows,
+    mapped-row crossovers, mergesweep and FFX tiles); they belong to
+    modules not yet ported and are dropped by `routing_from_jax_fields`.
+
+      rangesweep_min            — smallest keys-only n AUTO sends to
+                                  rangesweep; None disables the route.
+      rangesweep_min_pairs      — the same for stable 32-bit-payload pairs.
+      rangesweep_min_pairs_nonpow2 — an earlier band for non-power-of-two
+                                  pair counts; None disables it.
+      rangesweep_min_pairs_wide — 64-bit payloads (4 planes).
+      rangesweep_min_index      — argsort (2 planes).
+      rangesweep_seg_elems*     — phase-1 chunk length L per mode.
+      measured                  — True only for a row measured on its card.
+    """
+
+    rangesweep_min: int | None = None
+    rangesweep_seg_elems: int = 1 << 21
+    rangesweep_min_pairs: int | None = None
+    rangesweep_seg_elems_pairs: int = 1 << 21
+    rangesweep_min_pairs_nonpow2: int | None = None
+    rangesweep_min_pairs_wide: int | None = None
+    rangesweep_seg_elems_pairs_wide: int = 1 << 21
+    rangesweep_min_index: int | None = None
+    rangesweep_seg_elems_index: int = 1 << 21
+    measured: bool = False
+
+
+_ROUTING_TABLE = {
+    # H100: NOT MEASURED.  2^28 is the reference benchmark's flagship size
+    # (BASELINE.md: 2^28 u32 keys), not a crossover: it sends the flagship
+    # workload through the range-exchange engine and its relocate kernel,
+    # and everything smaller to the flat sort.  The crossover against flat
+    # torch.sort is to be measured on the card and installed here; if the
+    # flat sort wins at every size the thresholds go to None.  The seg
+    # lengths keep the defaults (2^21: K=128 at 2^28, so the hierarchical
+    # cuts run).  Only the SXM card has run it; PCIe and NVL cards take
+    # the same row unmeasured.
+    "h100": RoutingParameters(rangesweep_min=1 << 28,
+                              rangesweep_min_pairs=1 << 28,
+                              rangesweep_min_pairs_wide=1 << 28,
+                              rangesweep_min_index=1 << 28,
+                              measured=False),
+}
+
+# Process-wide override installed by callers (tests, a future autotuner).
+_ROUTING_OVERRIDE: list[RoutingParameters] = []
+
+
+def set_routing_override(params: RoutingParameters) -> None:
+    """Install a routing row that wins over the card table."""
+    _ROUTING_OVERRIDE.clear()
+    _ROUTING_OVERRIDE.append(params)
+
+
+def clear_routing_override() -> None:
+    _ROUTING_OVERRIDE.clear()
+
+
+def get_routing_parameters(info: DeviceInfo | None = None
+                           ) -> RoutingParameters:
+    """Routing row: the installed override, else the card's table row,
+    else the defaults (every route off).
+
+    Unlike the JAX package, the override also wins when `info` is given:
+    the port's entry points always pass the info of the tensor's device.
+    """
+    if _ROUTING_OVERRIDE:
+        return _ROUTING_OVERRIDE[0]
+    info = info or get_device_info()
+    return _ROUTING_TABLE.get(info.generation, RoutingParameters())
+
+
+def routing_from_jax_fields(d: dict) -> RoutingParameters:
+    """The port's row from a JAX `RoutingParameters` rendered by
+    `dataclasses.asdict`; fields of modules not yet ported are dropped."""
+    names = {f.name for f in dataclasses.fields(RoutingParameters)}
+    return RoutingParameters(**{k: v for k, v in d.items() if k in names})
+
+
+def auto_engine(n: int, mode: Mode = Mode.KEYS_ONLY,
+                payload_bits: int = 32,
+                info: DeviceInfo | None = None,
+                index_payload: bool = False) -> str:
+    """THE AUTO routing decision: "rangesweep" or "xla" (the flat sort).
+
+    Port of `gpusorting_tpu/core/config.py:auto_engine`, with the platform
+    gate moved from TPU to CUDA: a CPU tensor always takes the flat route.
+    index_payload=True is argsort (payload == index, 2 planes), routed by
+    `rangesweep_min_index`.
+    """
+    inf = info or get_device_info()
+    if inf.platform != "cuda":
+        return "xla"
+    r = get_routing_parameters(inf)
+    if mode == Mode.PAIRS:
+        if index_payload:
+            m = r.rangesweep_min_index
+        elif payload_bits > 32:
+            m = r.rangesweep_min_pairs_wide
+        else:
+            m = r.rangesweep_min_pairs
+            mn = r.rangesweep_min_pairs_nonpow2
+            if (mn is not None and n >= mn and n & (n - 1)
+                    and (m is None or n < m)):
+                return "rangesweep"
+    else:
+        m = r.rangesweep_min
+    return "rangesweep" if (m is not None and n >= m) else "xla"
+
+
+@dataclasses.dataclass(frozen=True)
+class SortConfig:
+    """Full sort configuration (reference: `GPUSortingConfig`,
+    GPUSorting.h:70-76)."""
+
+    mode: Mode = Mode.KEYS_ONLY
+    order: Order = Order.ASCENDING
+    key_type: KeyType = KeyType.UINT32
+    payload_type: PayloadType = PayloadType.UINT32
+    backend: Backend = Backend.AUTO
+
+
+ALL_KEY_TYPES = (KeyType.UINT32, KeyType.INT32, KeyType.FLOAT32)
+ALL_PAYLOAD_TYPES_32 = (PayloadType.UINT32, PayloadType.INT32,
+                        PayloadType.FLOAT32)
+ALL_ORDERS = (Order.ASCENDING, Order.DESCENDING)

@@ -1,0 +1,135 @@
+"""Public sort ops with backend dispatch.
+
+Port of `gpusorting_tpu/ops/__init__.py`.  Every entry point computes on
+the device of the tensor it is given.  `backend=AUTO` asks
+`core.config.auto_engine` for that device and size: on a CUDA card with a
+routing row, sorts at or above the row's thresholds run the range-exchange
+engine (ops/rangesweep.py, whose exchange is the hand-written relocate
+kernel); everything else runs the flat `torch.sort` (ops/flat_sort.py).
+Both sort the same biased key codes (core.codec), so outputs are
+bit-identical across routes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import codec
+from ..core.config import (Backend, Mode, Order, auto_engine,
+                           get_device_info, get_routing_parameters)
+from . import flat_sort, rangesweep
+
+
+def _check_lengths(keys, *others):
+    """Friendly shape errors (the reference asserts sizes, GPUSortBase.cs)."""
+    if keys.ndim != 1:
+        raise ValueError(f"keys must be 1-D, got shape {tuple(keys.shape)}")
+    for o in others:
+        if o.shape != keys.shape:
+            raise ValueError(f"payload shape {tuple(o.shape)} != keys shape "
+                             f"{tuple(keys.shape)}")
+
+
+def _check_backend(backend: Backend) -> None:
+    if backend == Backend.PALLAS:
+        raise NotImplementedError(
+            "Backend.PALLAS (the hand-written radix engines) is not ported "
+            "yet: ROADMAP.md Queue 1 #7 and Queue 2 #2-#7")
+
+
+def _route(keys: torch.Tensor, backend: Backend, mode: Mode = Mode.KEYS_ONLY,
+           payload_bits: int = 32, index_payload: bool = False) -> bool:
+    """True when AUTO sends this sort to rangesweep."""
+    _check_backend(backend)
+    return backend == Backend.AUTO and auto_engine(
+        keys.shape[0], mode, payload_bits=payload_bits,
+        info=get_device_info(keys.device),
+        index_payload=index_payload) == "rangesweep"
+
+
+def _flip(t: torch.Tensor, order: Order) -> torch.Tensor:
+    return torch.flip(t, dims=(0,)) if order == Order.DESCENDING else t
+
+
+def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
+         backend: Backend = Backend.AUTO) -> torch.Tensor:
+    """Sort a 1-D tensor of uint32/int32/float32 keys."""
+    _check_lengths(keys)
+    if _route(keys, backend):
+        sc = rangesweep.sort_codes_rangesweep(codec.encode_biased(keys))
+        return codec.decode_biased(_flip(sc, order), codec.key_type_of(keys))
+    return flat_sort.sort_keys(keys, order=order)
+
+
+def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                    order: Order = Order.ASCENDING,
+                    backend: Backend = Backend.AUTO):
+    """Stable pair sort with a 64-bit payload given as two 32-bit planes
+    (lo, hi); AUTO's 4-plane route moves the planes as they are."""
+    _check_lengths(keys, lo, hi)
+    if lo.dtype.itemsize != 4 or hi.dtype.itemsize != 4:
+        raise TypeError(f"lo/hi planes must be 32-bit, got {lo.dtype}, "
+                        f"{hi.dtype}")
+    if _route(keys, backend, Mode.PAIRS, payload_bits=64):
+        r = get_routing_parameters(get_device_info(keys.device))
+        sc, slo, shi = rangesweep.sort_pairs_rangesweep_planes(
+            codec.encode_biased(keys),
+            (lo.view(torch.int32), hi.view(torch.int32)),
+            seg_elems=r.rangesweep_seg_elems_pairs_wide)
+        return (codec.decode_biased(_flip(sc, order),
+                                    codec.key_type_of(keys)),
+                _flip(slo, order).view(lo.dtype),
+                _flip(shi, order).view(hi.dtype))
+    return flat_sort.sort_pairs_wide(keys, lo, hi, order=order)
+
+
+def sort_batched(keys: torch.Tensor, values: torch.Tensor | None = None,
+                 order: Order = Order.ASCENDING,
+                 backend: Backend = Backend.AUTO):
+    """Sort each row of a 2-D (batch, L) tensor independently; stable per
+    row, descending = per-row reverse of the ascending result."""
+    if keys.ndim != 2:
+        raise ValueError(
+            f"sort_batched takes a 2-D tensor, got {tuple(keys.shape)}")
+    if values is not None and values.shape != keys.shape:
+        raise ValueError(f"payload shape {tuple(values.shape)} != keys "
+                         f"shape {tuple(keys.shape)}")
+    _check_backend(backend)
+    return flat_sort.sort_batched(keys, values, order=order)
+
+
+def argsort(keys: torch.Tensor, order: Order = Order.ASCENDING,
+            backend: Backend = Backend.AUTO, return_keys: bool = False):
+    """Stable argsort: the int32 permutation that sorts `keys` (the
+    reference's pair sort with an index payload, GPUSortBase.h
+    CreateTestInput).  Descending is the reverse of the ascending
+    permutation; return_keys=True also returns the sorted keys."""
+    _check_lengths(keys)
+    if _route(keys, backend, Mode.PAIRS, index_payload=True):
+        sc, perm = rangesweep.argsort_rangesweep(codec.encode_biased(keys))
+        perm = _flip(perm, order)
+        if return_keys:
+            return (codec.decode_biased(_flip(sc, order),
+                                        codec.key_type_of(keys)), perm)
+        return perm
+    idx = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
+    k, perm = sort_pairs(keys, idx, order=order, backend=backend)
+    return (k, perm) if return_keys else perm
+
+
+def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
+               order: Order = Order.ASCENDING,
+               backend: Backend = Backend.AUTO):
+    """Stable sort of (keys, payload) pairs; the payload is moved by its bit
+    pattern.  A 64-bit payload (int64, uint64 or float64) rides as lo/hi
+    int32 planes and routes by its own threshold."""
+    _check_lengths(keys, values)
+    bits = codec.payload_to_bits(values)
+    pbits = 64 if bits.dtype == torch.int64 else 32
+    if _route(keys, backend, Mode.PAIRS, payload_bits=pbits):
+        sc, sb = rangesweep.sort_pairs_rangesweep(codec.encode_biased(keys),
+                                                  bits)
+        return (codec.decode_biased(_flip(sc, order),
+                                    codec.key_type_of(keys)),
+                codec.bits_to_payload(_flip(sb, order), values.dtype))
+    return flat_sort.sort_pairs(keys, values, order=order)

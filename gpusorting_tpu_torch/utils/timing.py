@@ -1,0 +1,90 @@
+"""Batch-timing harness replicating the reference's benchmark rules, timed
+with CUDA events.
+
+Port of `gpusorting_tpu/utils/timing.py`.  Reference rules (BASELINE.md;
+GPUSortBase.h:205-235, OneSweepDispatcher.cuh:193-239):
+  - one warm-up iteration, excluded from the average
+  - input regenerated on the device every iteration from seed (i + seed)
+  - only the sort is timed: a CUDA event pair brackets it, not the input
+    generation or any readback.
+The JAX package's in-jit chained loop (a workaround for its TPU attachment's
+unreliable sync) is not needed here.  Timing is a device measurement: it
+raises where the device is not a CUDA card.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+from ..core import prng
+from ..core.config import EntropyPreset
+
+
+def _require_cuda(device) -> torch.device:
+    dev = prng.require_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"timing needs a CUDA device, got {dev}")
+    return dev
+
+
+def device_time_ms(fn, iters: int = 5, warmup: int = 1,
+                   device: torch.device | str = "cuda") -> list[float]:
+    """Per-call device times (ms) of `fn()` on fixed inputs, each call
+    bracketed by a CUDA event pair on the current stream; `warmup` calls
+    run first and are not kept."""
+    dev = _require_cuda(device)
+    times = []
+    with torch.cuda.device(dev):
+        for i in range(warmup + iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            del out
+            if i >= warmup:
+                times.append(start.elapsed_time(end))
+    return times
+
+
+def batch_timing(sort_fn, n: int, batch: int = 10, seed: int = 10,
+                 entropy: EntropyPreset = EntropyPreset.E100,
+                 key_dtype: torch.dtype = torch.uint32,
+                 device: torch.device | str = "cuda") -> dict:
+    """Time `sort_fn(keys)` per the reference harness rules over `batch`
+    iterations (plus one warm-up); keys are `key_dtype` from
+    `prng.make_test_keys(n, i + seed)` on the device.
+
+    Returns {"seconds_per_sort", "keys_per_sec", "n", "batch",
+    "spread_min_s", "spread_max_s", "total_seconds", "device"}."""
+    dev = _require_cuda(device)
+    per_sort = []
+    wall0 = time.perf_counter()
+    with torch.cuda.device(dev):
+        for i in range(batch + 1):
+            keys = prng.make_test_keys(n, i + seed, key_dtype, entropy,
+                                       device=dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = sort_fn(keys)
+            end.record()
+            end.synchronize()
+            del out, keys
+            if i > 0:   # the warm-up iteration is excluded
+                per_sort.append(start.elapsed_time(end) / 1e3)
+    mean = statistics.fmean(per_sort)
+    return {
+        "seconds_per_sort": mean,
+        "keys_per_sec": n / mean,
+        "n": n,
+        "batch": batch,
+        "spread_min_s": min(per_sort),
+        "spread_max_s": max(per_sort),
+        "total_seconds": time.perf_counter() - wall0,
+        "device": torch.cuda.get_device_name(dev),
+    }
