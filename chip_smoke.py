@@ -6,10 +6,12 @@
 Needs a CUDA card; exits non-zero, printing no result, without one or
 outside a checkout of the repository.  Phases, each fatal on failure:
 
-  1. build the relocate kernel from csrc/relocate.cu and hold the range
-     exchange's kernel (method="dma") bit for bit against its plain PyTorch
-     version (method="gather") on the card, for 1 and 4 planes, at n = 2^28
-     with L = 2^21 (K = 128), on uniform, E020 and all-equal keys;
+  0. build every kernel from csrc/ (one nvcc per source, all at once), each
+     timed on its own `build` line;
+  1. hold the range exchange's relocate kernel (method="dma") bit for bit
+     against its plain PyTorch version (method="gather") on the card, for 1
+     and 4 planes, at n = 2^28 with L = 2^21 (K = 128), on uniform, E020
+     and all-equal keys;
   2. the main path at n = 2^28 through the public entry points under
      Backend.AUTO: sort on uint32 / int32 / float32 keys (the floats with
      NaN, +-0 and +-inf injected), sort_pairs with a uint32 and with an
@@ -20,7 +22,23 @@ outside a checkout of the repository.  Phases, each fatal on failure:
   3. times with CUDA events (utils/timing.py): end to end for the AUTO
      (rangesweep) route and the flat torch.sort route, per phase of the
      engine, and the relocate kernel beside its bound and its plain version,
-     for keys, pairs and argsort.
+     for keys, pairs and argsort;
+  4. the radix kernels against their plain versions at n = 2^28, on
+     uniform, E020 and all-equal keys, at both engines' shapes: the card's
+     tuning tile for device_radix (exclusive_scan on the pass's 16*T
+     counts) and FFX's fixed tile (exclusive_scan on its 16*B block sums,
+     the downsweep by the table its ScanAdd builds): tile_histogram4 at
+     all 8 shifts, and one downsweep pass on 1 and 3 planes at shifts 0 and
+     28, each bit for bit; exclusive_scan also on a 2^24 vector;
+  5. the Backend.PALLAS path at n = 2^28 through the public entry points,
+     for variant="device_radix" and variant="ffx": sort on uint32 / int32 /
+     float32 keys, sort_pairs with a uint32 and an int64 payload, and
+     argsort, each ascending and descending, held like phase 2; every call
+     must show 8 tile_histogram4, 24 exclusive_scan (3 per scan) and 8
+     downsweep launches; then one DeviceRadixSort(backend=PALLAS) sort;
+  6. times: the PALLAS routes end to end beside flat torch.sort, and each
+     radix kernel at the main path's shapes beside its bound, its plain
+     version and the one torch call that computes the same function.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -64,7 +82,8 @@ def main() -> int:
 
     import gpusorting_tpu_torch as gstt
     from gpusorting_tpu_torch.core import codec, prng
-    from gpusorting_tpu_torch.ops import relocate, rangesweep as rs
+    from gpusorting_tpu_torch.ops import (_nvcc, ffx, kernels, relocate,
+                                          rangesweep as rs, rts)
     from gpusorting_tpu_torch.utils import timing, validate
 
     dev = torch.device("cuda", 0)
@@ -90,12 +109,16 @@ def main() -> int:
     K = -(-N // L)
     l_rows = L // LANES
 
-    # ---- phase 1: build, and the kernel against its plain version --------
+    # ---- phase 0: build every kernel, one nvcc per source, all at once ----
+    sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
+               rts.SOURCE)
     t0 = time.perf_counter()
-    relocate.build()
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         source="gpusorting_tpu_torch/csrc/relocate.cu")
+    for src, secs in _nvcc.build_all(sources).items():
+        emit(phase="build", seconds=secs,
+             source=f"gpusorting_tpu_torch/csrc/{src.name}")
+    emit(phase="build_all", seconds=time.perf_counter() - t0)
 
+    # ---- phase 1: the relocate kernel against its plain version ----------
     max_abs_err = 0
     for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
                                  ("E020", gstt.EntropyPreset.E020, False),
@@ -310,6 +333,271 @@ def main() -> int:
         del keys, planes, ex, p3, ctrl, fringes, srcs
         free()
 
+    # ---- phase 4: the radix kernels against their plain versions ---------
+    # at each engine's own shapes: device_radix scans the (16 * T,) counts at
+    # the tuning row's tile; FFX counts at its fixed tile, scans the (16 * B,)
+    # block sums and scatters by the table its ScanAdd builds
+    tile_rows = rts.default_tile_rows(dev)
+    ffx_rows = gstt.get_routing_parameters(info).ffx_tile_rows
+    T = N // (tile_rows * LANES)
+    radix_err = {"tile_histogram4": 0, "exclusive_scan": 0, "downsweep": 0}
+
+    def check(kname, got, want, what):
+        for g, w in zip(got, want):
+            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+            radix_err[kname] = max(radix_err[kname], err)
+            _require(torch.equal(g, w), f"{kname} != plain on {what}")
+
+    def checked_scan(values, what):
+        table = kernels.exclusive_scan(values)
+        check("exclusive_scan", [table], [kernels.exclusive_scan_plain(
+            values)], what)
+        return table
+
+    for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
+                                 ("E020", gstt.EntropyPreset.E020, False),
+                                 ("all_equal", None, True)):
+        if equal:
+            x = torch.full((N,), 0x1234ABCD, dtype=torch.int32, device=dev)
+        else:
+            x = codec.encode_biased(prng.make_test_keys(
+                N, SEED, torch.uint32, entropy, device=dev))
+        rides = tuple(prng.hybrid_taus_bits(N, SEED + j, device=dev)
+                      .view(torch.int32) for j in (1, 2))
+        for engine, rows_t in (("device_radix", tile_rows),
+                               ("ffx", ffx_rows)):
+            planes, _ = rts.pad_tiles((x,) + rides, rows_t)
+            for shift in range(0, 32, 4):
+                counts = kernels.tile_histogram4(planes[0], shift, rows_t)
+                check("tile_histogram4", [counts],
+                      [kernels.tile_histogram4_plain(planes[0], shift,
+                                                     rows_t)],
+                      f"{name} {engine} shift {shift}")
+                if shift not in (0, 28):
+                    continue
+                if engine == "ffx":
+                    tiles, sums = ffx.count_reduce(counts)
+                    table = ffx.scan_add(tiles, checked_scan(
+                        sums, f"{name} ffx block sums"), counts.shape[0])
+                    scan_len = sums.numel()
+                else:
+                    table = checked_scan(counts.T.reshape(-1),
+                                         f"{name} 16*T table")
+                    scan_len = table.numel()
+                for ops in (planes[:1], planes):
+                    check("downsweep",
+                          rts.downsweep(ops, table, shift, rows_t),
+                          rts.downsweep_plain(ops, table, shift, rows_t),
+                          f"{name} {engine} shift {shift}, {len(ops)} "
+                          "planes")
+                    emit(phase="kernel_vs_plain", kernel="downsweep",
+                         engine=engine, input=name, shift=shift,
+                         planes=len(ops), n=N, tile_rows=rows_t,
+                         bit_exact=True)
+            torch.cuda.synchronize()
+            emit(phase="kernel_vs_plain", kernel="tile_histogram4",
+                 engine=engine, input=name, shifts=list(range(0, 32, 4)),
+                 n=N, tile_rows=rows_t, bit_exact=True)
+            emit(phase="kernel_vs_plain", kernel="exclusive_scan",
+                 engine=engine, input=name, length=scan_len, bit_exact=True)
+            del planes, counts, table
+        del x, rides
+        free()
+    vec = prng.hybrid_taus_bits(1 << 24, SEED + 9, device=dev).view(
+        torch.int32)                    # the whole int32 range: sums wrap
+    check("exclusive_scan", [kernels.exclusive_scan(vec)],
+          [kernels.exclusive_scan_plain(vec)], "a 2^24 vector")
+    torch.cuda.synchronize()
+    emit(phase="kernel_vs_plain", kernel="exclusive_scan", input="uniform",
+         length=1 << 24, bit_exact=True)
+    del vec
+    free()
+
+    # ---- phase 5: the PALLAS path through the public entry points --------
+    radix_fns = (kernels.tile_histogram4, kernels.exclusive_scan,
+                 rts.downsweep)
+    per_call = (8, 24, 8)
+
+    def radix_counts():
+        return tuple(f.launches for f in radix_fns)
+
+    for f in radix_fns:
+        f.launches = 0
+    pallas_runs = []
+
+    def pallas_call(label, fn):
+        before = radix_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(radix_counts(), before))
+        _require(delta == per_call,
+                 f"{label}: launches {delta} != {per_call}")
+        pallas_runs.append({"call": label, "launches": delta})
+        return out
+
+    for variant in ("device_radix", "ffx"):
+        pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
+        for kname, make in (
+                ("sort_u32", lambda: prng.make_test_keys(
+                    N, SEED + 4, torch.uint32, device=dev)),
+                ("sort_i32", lambda: prng.make_test_keys(
+                    N, SEED + 6, torch.int32, gstt.EntropyPreset.E054,
+                    device=dev)),
+                ("sort_f32", f32_keys)):
+            keys = make()
+            perm = oracle_perm(keys)
+            for order in orders:
+                out = pallas_call(f"{variant} {kname} {order.value}",
+                                  lambda: gstt.sort(keys, order=order, **pal))
+                _require(same_bits(out, keys, perm, order),
+                         f"{variant} {kname} {order.value} != torch.sort")
+                del out
+            del keys, perm
+            free()
+        for pname, pdtype in (("sort_pairs_u32", torch.uint32),
+                              ("sort_pairs_i64", torch.int64)):
+            keys, vals = prng.make_test_pairs(N, SEED + 7, torch.uint32,
+                                              pdtype, gstt.EntropyPreset.E033,
+                                              device=dev)
+            perm = oracle_perm(keys)
+            for order in orders:
+                ok, ov = pallas_call(
+                    f"{variant} {pname} {order.value}",
+                    lambda: gstt.sort_pairs(keys, vals, order=order, **pal))
+                _require(same_bits(ok, keys, perm, order)
+                         and same_bits(ov, vals, perm, order),
+                         f"{variant} {pname} {order.value} != torch.sort")
+                _require(int(validate.count_pair_violations(ok, ov, order))
+                         == 0, f"{variant} {pname}: stability violated")
+                del ok, ov
+            del keys, vals, perm
+            free()
+        keys = prng.make_test_keys(N, SEED + 8, torch.uint32,
+                                   gstt.EntropyPreset.E081, device=dev)
+        perm = oracle_perm(keys).to(torch.int32)
+        for order in orders:
+            out = pallas_call(f"{variant} argsort {order.value}",
+                              lambda: gstt.argsort(keys, order=order, **pal))
+            _require(torch.equal(out, flip(perm, order)),
+                     f"{variant} argsort {order.value} != torch.sort")
+            del out
+        del keys, perm
+        free()
+    keys = prng.make_test_keys(N, SEED + 10, torch.float32, device=dev)
+    sorter = gstt.DeviceRadixSort(gstt.SortConfig(backend=gstt.Backend.PALLAS))
+    out = pallas_call("DeviceRadixSort.sort", lambda: sorter.sort(keys))
+    _require(same_bits(out, keys, oracle_perm(keys), gstt.Order.ASCENDING),
+             "DeviceRadixSort(PALLAS).sort != torch.sort")
+    del keys, out
+    free()
+    pallas_launches = dict(zip(("tile_histogram4", "exclusive_scan",
+                                "downsweep"), radix_counts()))
+    _require(all(v > 0 for v in pallas_launches.values()),
+             f"the PALLAS path missed a kernel: {pallas_launches}")
+    emit(phase="pallas_path", n=N, tile_rows=tile_rows,
+         launches=pallas_launches, runs=pallas_runs, bit_exact=True)
+
+    # ---- phase 6: times of the PALLAS routes and of each radix kernel -----
+    payload = torch.arange(N, dtype=torch.int32, device=dev)
+    for what, make_fn in (
+            ("keys", lambda b, v: lambda k: gstt.sort(k, backend=b,
+                                                      variant=v)),
+            ("pairs", lambda b, v: lambda k: gstt.sort_pairs(
+                k, payload, backend=b, variant=v)),
+            ("argsort", lambda b, v: lambda k: gstt.argsort(k, backend=b,
+                                                            variant=v))):
+        for route, backend, variant in (
+                ("pallas_device_radix", gstt.Backend.PALLAS, "device_radix"),
+                ("pallas_ffx", gstt.Backend.PALLAS, "ffx"),
+                ("flat_torch_sort", gstt.Backend.XLA, "onesweep"),
+                ("pallas_device_radix_2", gstt.Backend.PALLAS,
+                 "device_radix"),
+                ("pallas_ffx_2", gstt.Backend.PALLAS, "ffx"),
+                ("flat_torch_sort_2", gstt.Backend.XLA, "onesweep")):
+            r = timing.batch_timing(make_fn(backend, variant), N,
+                                    batch=batch, seed=SEED, device=dev)
+            emit(phase="end_to_end", what=what, route=route, n=N,
+                 batch=batch, ms=r["seconds_per_sort"] * 1e3,
+                 spread_ms=[r["spread_min_s"] * 1e3,
+                            r["spread_max_s"] * 1e3],
+                 keys_per_sec=r["keys_per_sec"])
+            free()
+    del payload
+    free()
+
+    x = codec.encode_biased(prng.make_test_keys(N, SEED, torch.uint32,
+                                                device=dev))
+    ride = torch.arange(N, dtype=torch.int32, device=dev)
+    planes3 = rts.pad_tiles((x, ride, ride.clone()), tile_rows)[0]
+    shift = 28
+    counts = kernels.tile_histogram4(planes3[0], shift, tile_rows)
+    flat = counts.T.reshape(-1)
+    table = kernels.exclusive_scan(flat)
+    tile_elems = tile_rows * LANES
+    pos = torch.arange(N, device=dev)
+    radix_times = {
+        "tile_histogram4": dict(
+            ms=median_ms(lambda: kernels.tile_histogram4(planes3[0], shift,
+                                                         tile_rows)),
+            plain_ms=median_ms(lambda: kernels.tile_histogram4_plain(
+                planes3[0], shift, tile_rows), iters=3),
+            # torch.bincount of the key tile * 16 + digit, the key built
+            # inside the timed call
+            library_ms=median_ms(lambda: torch.bincount(
+                (pos // tile_elems) * 16
+                + kernels.digits(planes3[0].reshape(-1), shift),
+                minlength=16 * T)),
+            bound_ms=(4 * N + 4 * 16 * T) / bw * 1e3, launches_per_sort=8,
+            library="torch.bincount(t*16+digit), key built in the call"),
+        "exclusive_scan": dict(
+            ms=median_ms(lambda: kernels.exclusive_scan(flat)),
+            plain_ms=median_ms(lambda: kernels.exclusive_scan_plain(flat)),
+            library_ms=median_ms(lambda: torch.cumsum(flat, 0)),
+            bound_ms=8 * 16 * T / bw * 1e3, launches_per_sort=24,
+            library="torch.cumsum (inclusive, int64 out)"),
+    }
+    for n_planes in (1, 2, 3):
+        ops = planes3[:n_planes]
+        rec = dict(
+            ms=median_ms(lambda: rts.downsweep(ops, table, shift, tile_rows)),
+            plain_ms=median_ms(lambda: rts.downsweep_plain(
+                ops, table, shift, tile_rows), iters=3),
+            library_ms=None,
+            bound_ms=(8 * N * n_planes + 4 * 16 * T) / bw * 1e3,
+            launches_per_sort=8,
+            library="none: no one torch call scatters by a digit table")
+        radix_times[f"downsweep_{n_planes}"] = rec
+    for kname, rec in radix_times.items():
+        emit(phase="per_kernel", kernel=kname, n=N, tile_rows=tile_rows,
+             tiles=T, **rec)
+    # the FFX engine's fixed tile: its Upsweep, its scan of the block sums
+    # and its 1-plane downsweep
+    ffx_counts = kernels.tile_histogram4(planes3[0], shift, ffx_rows)
+    ffx_tiles, ffx_sums = ffx.count_reduce(ffx_counts)
+    ffx_table = ffx.scan_add(ffx_tiles, kernels.exclusive_scan(ffx_sums),
+                             ffx_counts.shape[0])
+    emit(phase="per_kernel_ffx_tile", n=N, tile_rows=ffx_rows,
+         tiles=N // (ffx_rows * LANES), scan_length=ffx_sums.numel(),
+         tile_histogram4_ms=median_ms(lambda: kernels.tile_histogram4(
+             planes3[0], shift, ffx_rows)),
+         exclusive_scan_ms=median_ms(lambda: kernels.exclusive_scan(
+             ffx_sums)),
+         downsweep_1_ms=median_ms(lambda: rts.downsweep(
+             planes3[:1], ffx_table, shift, ffx_rows)))
+    del x, ride, planes3, counts, flat, table, pos
+    del ffx_counts, ffx_tiles, ffx_sums, ffx_table
+    free()
+
+    def radix_row(name, kname, source, replaces, times):
+        return {"name": name, "route": "cuda",
+                "source": f"gpusorting_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": pallas_launches[kname],
+                "max_abs_err": radix_err[kname],
+                "ms": times["ms"], "plain_ms": times["plain_ms"],
+                "bound_ms": times["bound_ms"], "bound_by": "bytes",
+                "library_ms": times["library_ms"], "card": card}
+
     print(json.dumps({"kernels": [{
         "name": "relocate_rows",
         "route": "cuda",
@@ -323,7 +611,15 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "card": card,
-    }]}), flush=True)
+    }, radix_row("tile_hist4", "tile_histogram4", "tile_hist4.cu",
+                 "gpusorting_tpu/ops/kernels.py:144",
+                 radix_times["tile_histogram4"]),
+        radix_row("exclusive_scan", "exclusive_scan", "exclusive_scan.cu",
+                  "gpusorting_tpu/ops/kernels.py:209",
+                  radix_times["exclusive_scan"]),
+        radix_row("downsweep", "downsweep", "downsweep.cu",
+                  "gpusorting_tpu/ops/rts.py:62",
+                  radix_times["downsweep_1"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

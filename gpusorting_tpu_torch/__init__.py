@@ -5,12 +5,15 @@ entry points, key codes, stability and descending rules, held bit-exact
 against `gpusorting_tpu` on the same inputs.  It imports neither JAX nor
 the JAX package.  Entry points compute on the device of the tensor given;
 every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
-kernel (so far: the range-exchange relocate, `csrc/relocate.cu`).
+kernel (so far: the range-exchange relocate and the reduce-then-scan
+Upsweep, scan and downsweep, `csrc/`).
 
 Quick start:
     import gpusorting_tpu_torch as gstt
     out = gstt.sort(keys_cuda)                 # stable ascending
     k, v = gstt.sort_pairs(keys_cuda, values)  # stable pair sort
+    out = gstt.sort(keys_cuda, backend=gstt.Backend.PALLAS,
+                    variant="device_radix")    # the radix engines
 """
 
 from .core.config import (
@@ -23,12 +26,27 @@ from .core.config import (
     PayloadType,
     RoutingParameters,
     SortConfig,
+    TuningParameters,
     auto_engine,
     clear_routing_override,
+    clear_tuning_overrides,
     get_device_info,
     get_routing_parameters,
+    get_tuning_parameters,
     routing_from_jax_fields,
     set_routing_override,
+    set_tuning_override,
+    tuning_from_jax_fields,
+)
+from .api import (
+    DeviceRadixSort,
+    EmulatedDeadlocking,
+    FFXParallelSort,
+    ForwardSweep,
+    GPUSorterBase,
+    OneSweep,
+    TestReport,
+    super_test,
 )
 from .ops import argsort, sort, sort_batched, sort_pairs, sort_pairs_wide
 
@@ -37,22 +55,35 @@ __version__ = "0.1.0"
 __all__ = [
     "Backend",
     "DeviceInfo",
+    "DeviceRadixSort",
+    "EmulatedDeadlocking",
     "EntropyPreset",
+    "FFXParallelSort",
+    "ForwardSweep",
+    "GPUSorterBase",
     "KeyType",
     "Mode",
+    "OneSweep",
     "Order",
     "PayloadType",
     "RoutingParameters",
     "SortConfig",
+    "TestReport",
+    "TuningParameters",
     "argsort",
     "auto_engine",
     "clear_routing_override",
+    "clear_tuning_overrides",
     "get_device_info",
     "get_routing_parameters",
+    "get_tuning_parameters",
     "routing_from_jax_fields",
     "set_routing_override",
+    "set_tuning_override",
     "sort",
     "sort_batched",
     "sort_pairs",
     "sort_pairs_wide",
+    "super_test",
+    "tuning_from_jax_fields",
 ]

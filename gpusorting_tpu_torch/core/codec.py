@@ -78,6 +78,11 @@ def unbias(carrier: torch.Tensor) -> torch.Tensor:
     return (carrier ^ SIGN).view(torch.uint32)
 
 
+def wrap_int32(t: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 with its low 32 bits (int32 wrapping)."""
+    return (((t & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
 def encode_keys(keys: torch.Tensor) -> torch.Tensor:
     """Map keys to uint32 codes so unsigned order == the key type's order
     (bit-identical to the JAX package's codes)."""

@@ -5,11 +5,10 @@ Port of `gpusorting_tpu/core/config.py`:
     (reference: GPUSortingD3D12/GPUSorting.h:14-87)
   - `DeviceInfo`, probed from the tensor's device with
     `torch.cuda.get_device_properties` (reference: GPUSortingD3D12.cpp:18-81)
+  - `TuningParameters`, the radix engines' tile table per card and mode,
+    and its overrides (reference: Tuner.h:895-927)
   - `RoutingParameters`, its per-card table and overrides, and the single
     AUTO routing decision `auto_engine`.
-
-The TPU tile table (`TuningParameters`) serves only `Backend.PALLAS`, whose
-engines are not ported yet, so it is not here.
 """
 
 from __future__ import annotations
@@ -104,7 +103,9 @@ class Backend(enum.Enum):
     XLA     — the flat library sort: `torch.sort(stable=True)` over the key
               codes (CUB on CUDA, the reference's own oracle).  The name is
               kept from the JAX package, where this role is `jax.lax.sort`.
-    PALLAS  — the hand-written radix engines; not ported yet.
+    PALLAS  — the hand-written engine families, picked by `variant=`
+              (ops/radix.py); the name is kept from the JAX package, whose
+              kernels here are hand-written CUDA.
     AUTO    — `auto_engine()` picks per size and device: on a CUDA card
               with a routing row, sorts at or above the row's thresholds
               run the range-exchange engine (ops/rangesweep.py); all else
@@ -168,12 +169,87 @@ def get_device_info(device: torch.device | str | None = None) -> DeviceInfo:
 
 
 @dataclasses.dataclass(frozen=True)
+class TuningParameters:
+    """Per-card tile geometry of the radix engines (reference:
+    `TuningParameters`, GPUSorting.h:31-38, selected by Tuner.h:14-927).
+
+    The JAX package's row also carries TPU budgets (VMEM limits, bucket
+    bits, in-VMEM sort caps); no ported module reads them, so they are not
+    here and `tuning_from_jax_fields` drops them.
+
+      partition_rows   — rows of 128 keys per partition, the reference's
+                         PART_SIZE analog: the sorter objects' boundary
+                         test window is [partition_size, 2*partition_size].
+      radix_tile_rows  — rows of 128 keys per Upsweep/downsweep tile of the
+                         reduce-then-scan engine (ops/rts.py).
+      measured         — True only for a row measured on its card.
+    """
+
+    partition_rows: int
+    radix_tile_rows: int = 512
+    measured: bool = False
+
+    @property
+    def partition_size(self) -> int:
+        return self.partition_rows * 128
+
+
+_TUNING_TABLE = {
+    # H100: NOT MEASURED.  32 rows = 4096 keys per tile, near the
+    # reference's 3840-key DeviceRadixSort partition (SURVEY.md:103); a
+    # tile sweep on the card is to replace it.
+    "h100": {
+        Mode.KEYS_ONLY: TuningParameters(32, 32, measured=False),
+        Mode.PAIRS: TuningParameters(32, 32, measured=False),
+    },
+}
+# Every other device, the CPU included (the JAX package's generic row).
+_GENERIC_TUNING = {
+    Mode.KEYS_ONLY: TuningParameters(512, 512),
+    Mode.PAIRS: TuningParameters(512, 512),
+}
+
+# Process-wide per-mode overrides installed by callers (tests, a future
+# autotuner).
+_TUNING_OVERRIDES: dict[Mode, TuningParameters] = {}
+
+
+def set_tuning_override(mode: Mode, params: TuningParameters) -> None:
+    """Install a tuning row for `mode` that wins over the card table."""
+    _TUNING_OVERRIDES[mode] = params
+
+
+def clear_tuning_overrides() -> None:
+    _TUNING_OVERRIDES.clear()
+
+
+def get_tuning_parameters(info: DeviceInfo | None = None,
+                          mode: Mode = Mode.KEYS_ONLY) -> TuningParameters:
+    """Tuning row (reference: Tuner::GetTuningParameters, Tuner.h:895-927):
+    the installed override for `mode`, else the card's table row, else the
+    generic row.  The engines pass the info of their tensor's device; as
+    with routing, the override also wins when `info` is given."""
+    if mode in _TUNING_OVERRIDES:
+        return _TUNING_OVERRIDES[mode]
+    info = info or get_device_info()
+    return _TUNING_TABLE.get(info.generation, _GENERIC_TUNING)[mode]
+
+
+def tuning_from_jax_fields(d: dict) -> TuningParameters:
+    """The port's row from a JAX `TuningParameters` rendered by
+    `dataclasses.asdict`; the TPU-only fields are dropped."""
+    names = {f.name for f in dataclasses.fields(TuningParameters)}
+    return TuningParameters(**{k: v for k, v in d.items() if k in names})
+
+
+@dataclasses.dataclass(frozen=True)
 class RoutingParameters:
-    """Routing thresholds and chunk lengths of the range-exchange engine.
+    """Routing thresholds and chunk lengths of the range-exchange engine,
+    and the FFX engine's fixed tile.
 
     The JAX package's row carries more fields (segmented-sort windows,
-    mapped-row crossovers, mergesweep and FFX tiles); they belong to
-    modules not yet ported and are dropped by `routing_from_jax_fields`.
+    mapped-row crossovers, mergesweep chunks); they belong to modules not
+    yet ported and are dropped by `routing_from_jax_fields`.
 
       rangesweep_min            — smallest keys-only n AUTO sends to
                                   rangesweep; None disables the route.
@@ -183,6 +259,10 @@ class RoutingParameters:
       rangesweep_min_pairs_wide — 64-bit payloads (4 planes).
       rangesweep_min_index      — argsort (2 planes).
       rangesweep_seg_elems*     — phase-1 chunk length L per mode.
+      ffx_tile_rows             — the FFX engine's tile (rows of 128 keys).
+                                  FFX is fixed-tuning by definition
+                                  (FFXParallelSort.cpp:28-43): recorded
+                                  here to be auditable, not to vary.
       measured                  — True only for a row measured on its card.
     """
 
@@ -195,6 +275,7 @@ class RoutingParameters:
     rangesweep_seg_elems_pairs_wide: int = 1 << 21
     rangesweep_min_index: int | None = None
     rangesweep_seg_elems_index: int = 1 << 21
+    ffx_tile_rows: int = 256
     measured: bool = False
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import codec
 from .config import EntropyPreset
 
 _M32 = 0xFFFFFFFF
@@ -61,11 +62,6 @@ def _hybrid_taus_draw(z1, z2, z3, z4):
     return z1 ^ z2 ^ z3 ^ z4, (z1, z2, z3, z4)
 
 
-def _u32_to_int32(t: torch.Tensor) -> torch.Tensor:
-    """int64 holding u32 values -> int32 with the same bits."""
-    return ((t ^ 0x80000000) - 0x80000000).to(torch.int32)
-
-
 def _taus_chunk(start: int, count: int, seed: int, and_count: int,
                 warmup: int, device: torch.device) -> torch.Tensor:
     idx = torch.arange(start, start + count, dtype=torch.int64,
@@ -80,7 +76,7 @@ def _taus_chunk(start: int, count: int, seed: int, and_count: int,
     for _ in range(and_count + 1):
         v, state = _hybrid_taus_draw(*state)
         t = v if t is None else t & v
-    return _u32_to_int32(t)
+    return codec.wrap_int32(t)
 
 
 def hybrid_taus_bits(n: int, seed: int, and_count: int = 0, warmup: int = 2,
@@ -132,4 +128,4 @@ def make_descending_keys(n: int, dtype: torch.dtype = torch.uint32,
     """InitDescending analog (UtilityKernels.cuh:36-40): n-1, n-2, ..., 0."""
     dev = require_device(device)
     t = (n - 1 - torch.arange(n, dtype=torch.int64, device=dev)) & _M32
-    return _u32_to_int32(t).view(dtype)
+    return codec.wrap_int32(t).view(dtype)

@@ -6,8 +6,11 @@ the device of the tensor it is given.  `backend=AUTO` asks
 routing row, sorts at or above the row's thresholds run the range-exchange
 engine (ops/rangesweep.py, whose exchange is the hand-written relocate
 kernel); everything else runs the flat `torch.sort` (ops/flat_sort.py).
-Both sort the same biased key codes (core.codec), so outputs are
-bit-identical across routes.
+`backend=PALLAS` runs the engine family named by `variant=` (ops/radix.py:
+"device_radix" and "ffx", whose Upsweep, scan and downsweep are
+hand-written kernels), with `tile_rows=` overriding the radix tile.  All
+sort the same biased key codes (core.codec), so outputs are bit-identical
+across routes.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from ..core import codec
 from ..core.config import (Backend, Mode, Order, auto_engine,
                            get_device_info, get_routing_parameters)
-from . import flat_sort, rangesweep
+from . import flat_sort, radix, rangesweep
+from .flat_sort import _flip
 
 
 def _check_lengths(keys, *others):
@@ -30,31 +34,26 @@ def _check_lengths(keys, *others):
                              f"{tuple(keys.shape)}")
 
 
-def _check_backend(backend: Backend) -> None:
-    if backend == Backend.PALLAS:
-        raise NotImplementedError(
-            "Backend.PALLAS (the hand-written radix engines) is not ported "
-            "yet: ROADMAP.md Queue 1 #7 and Queue 2 #2-#7")
-
-
 def _route(keys: torch.Tensor, backend: Backend, mode: Mode = Mode.KEYS_ONLY,
            payload_bits: int = 32, index_payload: bool = False) -> bool:
     """True when AUTO sends this sort to rangesweep."""
-    _check_backend(backend)
     return backend == Backend.AUTO and auto_engine(
         keys.shape[0], mode, payload_bits=payload_bits,
         info=get_device_info(keys.device),
         index_payload=index_payload) == "rangesweep"
 
 
-def _flip(t: torch.Tensor, order: Order) -> torch.Tensor:
-    return torch.flip(t, dims=(0,)) if order == Order.DESCENDING else t
-
-
 def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
-         backend: Backend = Backend.AUTO) -> torch.Tensor:
-    """Sort a 1-D tensor of uint32/int32/float32 keys."""
+         backend: Backend = Backend.AUTO, variant: str = "onesweep",
+         tile_rows: int | None = None) -> torch.Tensor:
+    """Sort a 1-D tensor of uint32/int32/float32 keys.
+
+    variant and tile_rows select the PALLAS engine family and its tile;
+    the other backends ignore them."""
     _check_lengths(keys)
+    if backend == Backend.PALLAS:
+        return radix.sort(keys, order=order, variant=variant,
+                          tile_rows=tile_rows)
     if _route(keys, backend):
         sc = rangesweep.sort_codes_rangesweep(codec.encode_biased(keys))
         return codec.decode_biased(_flip(sc, order), codec.key_type_of(keys))
@@ -63,13 +62,19 @@ def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
 
 def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                     order: Order = Order.ASCENDING,
-                    backend: Backend = Backend.AUTO):
+                    backend: Backend = Backend.AUTO,
+                    variant: str = "onesweep",
+                    tile_rows: int | None = None):
     """Stable pair sort with a 64-bit payload given as two 32-bit planes
-    (lo, hi); AUTO's 4-plane route moves the planes as they are."""
+    (lo, hi); AUTO's 4-plane route and the PALLAS engines move the planes
+    as they are."""
     _check_lengths(keys, lo, hi)
     if lo.dtype.itemsize != 4 or hi.dtype.itemsize != 4:
         raise TypeError(f"lo/hi planes must be 32-bit, got {lo.dtype}, "
                         f"{hi.dtype}")
+    if backend == Backend.PALLAS:
+        return radix.sort_pairs_wide(keys, lo, hi, order=order,
+                                     variant=variant, tile_rows=tile_rows)
     if _route(keys, backend, Mode.PAIRS, payload_bits=64):
         r = get_routing_parameters(get_device_info(keys.device))
         sc, slo, shi = rangesweep.sort_pairs_rangesweep_planes(
@@ -85,21 +90,33 @@ def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 def sort_batched(keys: torch.Tensor, values: torch.Tensor | None = None,
                  order: Order = Order.ASCENDING,
-                 backend: Backend = Backend.AUTO):
+                 backend: Backend = Backend.AUTO,
+                 variant: str = "onesweep", tile_rows: int | None = None):
     """Sort each row of a 2-D (batch, L) tensor independently; stable per
-    row, descending = per-row reverse of the ascending result."""
+    row, descending = per-row reverse of the ascending result.  PALLAS runs
+    each row through the named engine."""
     if keys.ndim != 2:
         raise ValueError(
             f"sort_batched takes a 2-D tensor, got {tuple(keys.shape)}")
     if values is not None and values.shape != keys.shape:
         raise ValueError(f"payload shape {tuple(values.shape)} != keys "
                          f"shape {tuple(keys.shape)}")
-    _check_backend(backend)
+    if backend == Backend.PALLAS:
+        if values is None:
+            return torch.stack([radix.sort(r, order=order, variant=variant,
+                                           tile_rows=tile_rows)
+                                for r in keys])
+        rows = [radix.sort_pairs(k, v, order=order, variant=variant,
+                                 tile_rows=tile_rows)
+                for k, v in zip(keys, values)]
+        return (torch.stack([k for k, _ in rows]),
+                torch.stack([v for _, v in rows]))
     return flat_sort.sort_batched(keys, values, order=order)
 
 
 def argsort(keys: torch.Tensor, order: Order = Order.ASCENDING,
-            backend: Backend = Backend.AUTO, return_keys: bool = False):
+            backend: Backend = Backend.AUTO, variant: str = "onesweep",
+            tile_rows: int | None = None, return_keys: bool = False):
     """Stable argsort: the int32 permutation that sorts `keys` (the
     reference's pair sort with an index payload, GPUSortBase.h
     CreateTestInput).  Descending is the reverse of the ascending
@@ -113,17 +130,22 @@ def argsort(keys: torch.Tensor, order: Order = Order.ASCENDING,
                                         codec.key_type_of(keys)), perm)
         return perm
     idx = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
-    k, perm = sort_pairs(keys, idx, order=order, backend=backend)
+    k, perm = sort_pairs(keys, idx, order=order, backend=backend,
+                         variant=variant, tile_rows=tile_rows)
     return (k, perm) if return_keys else perm
 
 
 def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
                order: Order = Order.ASCENDING,
-               backend: Backend = Backend.AUTO):
+               backend: Backend = Backend.AUTO, variant: str = "onesweep",
+               tile_rows: int | None = None):
     """Stable sort of (keys, payload) pairs; the payload is moved by its bit
     pattern.  A 64-bit payload (int64, uint64 or float64) rides as lo/hi
     int32 planes and routes by its own threshold."""
     _check_lengths(keys, values)
+    if backend == Backend.PALLAS:
+        return radix.sort_pairs(keys, values, order=order, variant=variant,
+                                tile_rows=tile_rows)
     bits = codec.payload_to_bits(values)
     pbits = 64 if bits.dtype == torch.int64 else 32
     if _route(keys, backend, Mode.PAIRS, payload_bits=pbits):

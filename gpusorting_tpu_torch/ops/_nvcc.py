@@ -1,0 +1,110 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every kernel source in `csrc/` has a plain C interface.  `build` compiles
+one with `nvcc` for sm_90a into a shared library under `_build/` beside
+the package, named by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an unchanged
+source is compiled once; `build_all` starts one `nvcc` per source at once.
+`load` returns the library as a `ctypes.CDLL`; the caller declares its
+functions' argument types.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in ((os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
+                  else None), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _target(source: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):   # what a source may include
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(source: pathlib.Path) -> float:
+    """Compile `source` unless its library exists; the seconds it took."""
+    so = _target(source)
+    if so.exists():
+        return 0.0
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                           str(source)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return time.perf_counter() - t0
+
+
+def build(source: pathlib.Path) -> pathlib.Path:
+    """Compile `source` (once per source hash); return the .so."""
+    _compile(source)
+    return _target(source)
+
+
+def build_all(sources) -> dict:
+    """Compile every source at once, one `nvcc` each; returns
+    {source: seconds its build took} (0.0 where the library existed)."""
+    sources = list(sources)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        futures = {s: pool.submit(_compile, s) for s in sources}
+        return {s: f.result() for s, f in futures.items()}
+
+
+@functools.cache
+def load(source: pathlib.Path) -> ctypes.CDLL:
+    """The built library of `source`, loaded once per process."""
+    return ctypes.CDLL(str(build(source)))
+
+
+def check(op: str, name: str, t: torch.Tensor, shape: tuple,
+          device: torch.device, ref: str = "input") -> None:
+    """Raise unless `t` is a contiguous, 16-byte aligned int32 tensor of
+    `shape` on `device` (where the tensor named `ref` lies)."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{op}: {name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{op}: {name} shape {tuple(t.shape)} != {shape}")
+    if t.device != device:
+        raise ValueError(f"{op}: {name} on {t.device}, {ref} on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+
+
+def launch(op: str, fn, *args, device: torch.device) -> None:
+    """Call the C entry point `fn(*args, stream)` on the current stream of
+    `device`; raise if it reports a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")

@@ -1,0 +1,163 @@
+"""The radix engines' building blocks: per-tile 4-bit digit counts (the
+Upsweep) and the exclusive scan, each a hand-written CUDA kernel beside its
+plain PyTorch version.
+
+Port of `gpusorting_tpu/ops/kernels.py`:
+  tile_histogram4  <- `_tile_hist4_kernel` (kernels.py:144), kernel
+                      `csrc/tile_hist4.cu`
+  exclusive_scan   <- `_scan_kernel` (kernels.py:209), kernel
+                      `csrc/exclusive_scan.cu` (reduce-then-scan: the TPU
+                      kernel's carry across an in-order grid has no CUDA
+                      counterpart)
+`global_histogram` (kernels.py:115) serves only the fused radix16 engine
+and comes with it.
+
+Codes are the port's biased int32 carriers (`core/codec.py`): the digit at
+`shift` is `((x ^ 0x80000000) >> shift) & 15`.  Each wrapper launches its
+kernel on a CUDA tensor (or raises) and takes the plain version only for a
+CPU tensor; `fn.launches` counts the kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core import codec
+from . import _nvcc
+
+LANES = 128
+NBUCKETS = 16
+HIST_SOURCE = _nvcc.CSRC / "tile_hist4.cu"
+SCAN_SOURCE = _nvcc.CSRC / "exclusive_scan.cu"
+SCAN_TILE = 2048    # elements per block of csrc/exclusive_scan.cu (kTile)
+
+
+def digits(codes: torch.Tensor, shift: int) -> torch.Tensor:
+    """The 4-bit digit at `shift` of biased int32 codes (int64 values); the
+    xor restores the u32 code, so shift 28 reads its top nibble."""
+    return ((codes ^ codec.SIGN) >> shift).to(torch.int64) & 15
+
+
+def check_shift(shift: int) -> None:
+    if not 0 <= shift <= 28:
+        raise ValueError(f"shift must be in [0, 28], got {shift}")
+
+
+def check_int32(op: str, t: torch.Tensor) -> None:
+    """Raise unless `t` is int32: the CPU branch's check (the kernels take
+    int32 only, `_nvcc.check` holds them to it, and the plain versions
+    follow them)."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{op}: expected int32, got {t.dtype}")
+
+
+# ---- Upsweep: tile_histogram4 ---------------------------------------------
+
+
+def tile_histogram4_plain(codes2d: torch.Tensor, shift: int,
+                          tile_rows: int) -> torch.Tensor:
+    """Plain version: count the key t * 16 + digit with one `index_add_`."""
+    num_tiles = codes2d.shape[0] // tile_rows
+    key = (torch.arange(codes2d.numel(), device=codes2d.device)
+           // (tile_rows * LANES)) * NBUCKETS + digits(codes2d.reshape(-1),
+                                                       shift)
+    counts = torch.zeros(num_tiles * NBUCKETS, dtype=torch.int32,
+                         device=codes2d.device)
+    counts.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
+    return counts.view(num_tiles, NBUCKETS)
+
+
+@functools.cache
+def _hist_library() -> ctypes.CDLL:
+    lib = _nvcc.load(HIST_SOURCE)
+    fn = lib.gst_tile_hist4
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong,
+                                           ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def tile_histogram4(codes2d: torch.Tensor, shift: int,
+                    tile_rows: int) -> torch.Tensor:
+    """(T, 16) int32 counts of the 4-bit digit at `shift` in each tile of
+    `tile_rows` rows of a (T * tile_rows, 128) int32 plane of biased codes.
+
+    A CUDA plane launches `csrc/tile_hist4.cu` (or raises); a CPU plane
+    takes `tile_histogram4_plain`."""
+    check_shift(shift)
+    rows = codes2d.shape[0]
+    if tile_rows < 1 or rows % tile_rows:
+        raise ValueError(f"{rows} rows are not whole tiles of {tile_rows}")
+    if codes2d.device.type == "cpu":
+        check_int32("tile_histogram4", codes2d)
+        return tile_histogram4_plain(codes2d, shift, tile_rows)
+    if codes2d.device.type != "cuda":
+        raise ValueError(f"tile_histogram4: unsupported device "
+                         f"{codes2d.device}")
+    dev = codes2d.device
+    num_tiles = rows // tile_rows
+    _nvcc.check("tile_histogram4", "codes2d", codes2d, (rows, LANES), dev)
+    out = torch.empty((num_tiles, NBUCKETS), dtype=torch.int32, device=dev)
+    _nvcc.launch("tile_histogram4", _hist_library().gst_tile_hist4,
+                 codes2d.data_ptr(), out.data_ptr(), num_tiles,
+                 tile_rows * LANES, shift, device=dev)
+    tile_histogram4.launches += 1
+    return out
+
+
+tile_histogram4.launches = 0
+
+
+# ---- Scan: exclusive_scan -------------------------------------------------
+
+
+def exclusive_scan_plain(values: torch.Tensor) -> torch.Tensor:
+    """Plain version: an int64 running sum less the element, wrapped to
+    int32."""
+    inclusive = torch.cumsum(values.to(torch.int64), 0)
+    return codec.wrap_int32(inclusive - values.to(torch.int64))
+
+
+@functools.cache
+def _scan_library() -> ctypes.CDLL:
+    lib = _nvcc.load(SCAN_SOURCE)
+    fn = lib.gst_exclusive_scan
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def exclusive_scan(values: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum of a 1-D int32 tensor, wrapping like int32.
+
+    A CUDA tensor runs `csrc/exclusive_scan.cu`, three launches (reduce,
+    spine, scan), all counted in `exclusive_scan.launches` (or raises); a
+    CPU tensor takes `exclusive_scan_plain`."""
+    if values.ndim != 1:
+        raise ValueError(f"exclusive_scan takes a 1-D tensor, got "
+                         f"{tuple(values.shape)}")
+    if values.device.type == "cpu":
+        check_int32("exclusive_scan", values)
+        return exclusive_scan_plain(values)
+    if values.device.type != "cuda":
+        raise ValueError(f"exclusive_scan: unsupported device "
+                         f"{values.device}")
+    dev = values.device
+    n = values.shape[0]
+    _nvcc.check("exclusive_scan", "values", values, (n,), dev)
+    out = torch.empty_like(values)
+    if n == 0:
+        return out
+    sums = torch.empty(-(-n // SCAN_TILE), dtype=torch.int32, device=dev)
+    _nvcc.launch("exclusive_scan", _scan_library().gst_exclusive_scan,
+                 values.data_ptr(), out.data_ptr(), sums.data_ptr(), n,
+                 sums.numel(), device=dev)
+    exclusive_scan.launches += 3
+    return out
+
+
+exclusive_scan.launches = 0

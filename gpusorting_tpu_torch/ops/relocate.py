@@ -11,27 +11,20 @@ Every output row is written exactly once.
 
 `relocate` launches the kernel on a CUDA tensor and takes the plain version
 only for a CPU tensor; `relocate.launches` counts the kernel launches.  The
-kernel is compiled with `nvcc` at first use from the package's own source,
-into `_build/` beside it, keyed by a hash of the source and flags.
+kernel is compiled with `nvcc` at first use from the package's own source
+(ops/_nvcc.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "relocate.cu"
-_BUILD = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from . import _nvcc
+
+SOURCE = _nvcc.CSRC / "relocate.cu"
 LANES = 128
 
 
@@ -58,36 +51,9 @@ def relocate_plain(ctrl: torch.Tensor, src: torch.Tensor,
     return torch.cat([src, fringe]).index_select(0, g.reshape(-1))
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    for cand in ((os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME
-                  else None), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the relocate kernel cannot be built")
-
-
-def build() -> pathlib.Path:
-    """Compile `csrc/relocate.cu` (once per source hash); return the .so."""
-    text = SOURCE.read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD / f"relocate_{tag[:16]}.so"
-    if so.exists():
-        return so
-    _BUILD.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _nvcc.load(SOURCE)
     fn = lib.gst_relocate_rows
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
@@ -96,16 +62,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
-    if t.dtype != torch.int32:
-        raise TypeError(f"relocate: {name} must be int32, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"relocate: {name} shape {tuple(t.shape)} != {shape}")
-    if t.device != device:
-        raise ValueError(f"relocate: {name} on {t.device}, src on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"relocate: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"relocate: {name} must be 16-byte aligned")
+    _nvcc.check("relocate", name, t, shape, device, ref="src")
 
 
 def relocate(ctrl: torch.Tensor, src: torch.Tensor, fringe: torch.Tensor,
@@ -126,13 +83,9 @@ def relocate(ctrl: torch.Tensor, src: torch.Tensor, fringe: torch.Tensor,
     if rows_total >= 1 << 31:
         raise ValueError(f"relocate: {rows_total} rows exceed int32")
     out = torch.empty_like(src)
-    fn = _library().gst_relocate_rows
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ctrl.data_ptr(), src.data_ptr(), fringe.data_ptr(),
-                out.data_ptr(), K, l_rows, slab_rows, stream)
-    if rc != 0:
-        raise RuntimeError(f"relocate kernel launch failed: CUDA error {rc}")
+    _nvcc.launch("relocate", _library().gst_relocate_rows, ctrl.data_ptr(),
+                 src.data_ptr(), fringe.data_ptr(), out.data_ptr(), K,
+                 l_rows, slab_rows, device=dev)
     relocate.launches += 1
     return out
 

@@ -1,6 +1,7 @@
-"""Tests of gpusorting_tpu_torch that need an NVIDIA card: the relocate
-kernel against its plain version, its launch checks, and the engines and
-public entry points through the kernel against flat torch.sort.
+"""Tests of gpusorting_tpu_torch that need an NVIDIA card: each hand-written
+kernel (relocate, tile_histogram4, exclusive_scan, downsweep) against its
+plain version, their launch checks, and the engines and public entry
+points through the kernels against flat torch.sort.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -15,7 +16,8 @@ import torch
 
 import gpusorting_tpu_torch as gstt
 from gpusorting_tpu_torch.core import codec, config, prng
-from gpusorting_tpu_torch.ops import relocate, rangesweep as rs
+from gpusorting_tpu_torch.ops import (ffx, kernels, radix, relocate,
+                                      rangesweep as rs, rts)
 
 pytestmark = pytest.mark.cuda
 
@@ -23,7 +25,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the relocate kernel is CUDA-only)")
+        pytest.skip("needs a CUDA card (the kernels are CUDA-only)")
     return torch.device("cuda")
 
 
@@ -127,3 +129,163 @@ def test_flagship_row_routes_rangesweep(cuda):
         pytest.skip(f"no routing row for {info.device_kind}")
     assert config.auto_engine(1 << 28, info=info) == "rangesweep"
     assert config.auto_engine((1 << 28) - 1, info=info) == "xla"
+
+
+# ---- the radix kernels (Upsweep, scan, downsweep) and the PALLAS engines ----
+
+
+def _radix_codes(kind, n, seed, dev):
+    rng = np.random.default_rng(seed)
+    if kind == "distinct16":
+        x = rng.integers(0, 16, n, dtype=np.uint32) * np.uint32(0x11111111)
+    elif kind == "alleq":
+        x = np.full(n, 0xF00DCAFE, np.uint32)
+    else:
+        x = rng.integers(0, 2**32, n, dtype=np.uint32)
+    return codec.bias(torch.from_numpy(x)).to(dev)
+
+
+@pytest.mark.parametrize("tile_rows", [1, 3, 32, 129])
+@pytest.mark.parametrize("kind", ["rand", "distinct16", "alleq"])
+def test_tile_histogram4_kernel_matches_plain(cuda, kind, tile_rows):
+    rows = tile_rows * 5
+    x = _radix_codes(kind, rows * 128, tile_rows, cuda).view(rows, 128)
+    before = kernels.tile_histogram4.launches
+    for shift in range(0, 32, 4):
+        got = kernels.tile_histogram4(x, shift, tile_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.tile_histogram4_plain(x, shift,
+                                                              tile_rows))
+    assert kernels.tile_histogram4.launches == before + 8
+
+
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 16 * 4097,
+                               (1 << 24) + 3])
+def test_exclusive_scan_kernel_matches_plain(cuda, n):
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                      generator=g).to(cuda)
+    before = kernels.exclusive_scan.launches
+    got = kernels.exclusive_scan(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.exclusive_scan_plain(x))
+    assert kernels.exclusive_scan.launches == before + 3
+    small = (x & 15).contiguous()            # no wrap: equals cumsum
+    assert torch.equal(kernels.exclusive_scan(small).long(),
+                       torch.cumsum(small.long(), 0) - small.long())
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 200])
+@pytest.mark.parametrize("kind", ["rand", "distinct16", "alleq"])
+def test_downsweep_kernel_matches_plain(cuda, kind, n):
+    tile_rows = 32
+    codes = _radix_codes(kind, n, n, cuda)
+    ride = torch.arange(n, dtype=torch.int32, device=cuda)
+    planes, _ = rts.pad_tiles((codes, ride, ride * 7), tile_rows)
+    for shift in (0, 12, 28):
+        counts = kernels.tile_histogram4_plain(planes[0], shift, tile_rows)
+        table = kernels.exclusive_scan_plain(counts.T.reshape(-1))
+        for ops in (planes[:1], planes):
+            before = rts.downsweep.launches
+            got = rts.downsweep(ops, table, shift, tile_rows)
+            torch.cuda.synchronize()
+            assert rts.downsweep.launches == before + 1
+            want = rts.downsweep_plain(ops, table, shift, tile_rows)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def test_radix_wrappers_check_on_card(cuda):
+    x = torch.zeros((64, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.tile_histogram4(x.float(), 0, 32)
+    with pytest.raises(ValueError, match="whole tiles"):
+        kernels.tile_histogram4(x, 0, 48)
+    with pytest.raises(ValueError, match="shift"):
+        kernels.tile_histogram4(x, 32, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.exclusive_scan(x.reshape(-1)[::2])
+    table = torch.zeros(32, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        rts.downsweep([x], table[:-1], 0, 32)
+    with pytest.raises(ValueError, match="planes"):
+        rts.downsweep([x] * 4, table, 0, 32)
+    with pytest.raises(ValueError, match="on cpu"):
+        rts.downsweep([x, x.cpu()], table, 0, 32)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 300_001])
+def test_radix_engines_match_torch_sort(cuda, n):
+    k = codec.encode_biased(prng.hybrid_taus_bits(n, n, 3, device=cuda))
+    v = prng.hybrid_taus_bits(n, n + 1, device=cuda).view(torch.int32)
+    want = torch.sort(k, stable=True)
+    counts = (kernels.tile_histogram4.launches,
+              kernels.exclusive_scan.launches, rts.downsweep.launches)
+    assert torch.equal(rts.sort_codes_rts(k), want.values)
+    sk, sv = rts.sort_pairs_rts(k, v)
+    assert torch.equal(sk, want.values)
+    assert torch.equal(sv, v[want.indices])
+    sk, sv, sw = rts._sort_rts((k, v, v ^ 0x5A5A5A5A), tile_rows=7)
+    assert torch.equal(sw, (v ^ 0x5A5A5A5A)[want.indices])
+    assert torch.equal(ffx.sort_codes_ffx(k), want.values)
+    sk, sv = ffx.sort_pairs_ffx(k, v)
+    assert torch.equal(sv, v[want.indices])
+    torch.cuda.synchronize()
+    # five sorts of 8 passes: 8 Upsweeps, 24 scan launches, 8 downsweeps
+    assert (kernels.tile_histogram4.launches - counts[0],
+            kernels.exclusive_scan.launches - counts[1],
+            rts.downsweep.launches - counts[2]) == (40, 120, 40)
+
+
+def test_public_pallas_route_on_card(cuda):
+    n = 300_000
+    keys = prng.make_test_keys(n, 9, torch.float32, gstt.EntropyPreset.E054,
+                               device=cuda)
+    vals = prng.hybrid_taus_bits(n, 10, device=cuda).view(torch.int32)
+    wide = codec.join_wide(vals, vals ^ 0x0F0F0F0F)
+    for variant in radix.PORTED:
+        kw = {"backend": gstt.Backend.PALLAS, "variant": variant}
+        for order in (gstt.Order.ASCENDING, gstt.Order.DESCENDING):
+            got = gstt.sort(keys, order=order, **kw)
+            want = gstt.sort(keys, order=order, backend=gstt.Backend.XLA)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert torch.equal(gstt.argsort(keys, order=order, **kw),
+                               gstt.argsort(keys, order=order,
+                                            backend=gstt.Backend.XLA))
+            for v in (vals, wide):
+                gk, gv = gstt.sort_pairs(keys, v, order=order, **kw)
+                wk, wv = gstt.sort_pairs(keys, v, order=order,
+                                         backend=gstt.Backend.XLA)
+                assert torch.equal(gv, wv)
+    s = gstt.DeviceRadixSort(gstt.SortConfig(backend=gstt.Backend.PALLAS))
+    assert s.validate_against_oracle(100_003, 5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gstt.sort(keys, backend=gstt.Backend.PALLAS, variant="radix16")
+
+
+@pytest.mark.parametrize("variant", radix.PORTED)
+def test_public_pallas_offset_views_on_card(cuda, variant):
+    """Key and payload slices at odd offsets, a whole number of tiles long,
+    sort like any other input (the planes are copied to 16-byte aligned
+    storage before a kernel sees them)."""
+    n = 1 << 15                           # whole tiles for both engines
+    big = prng.hybrid_taus_bits(n + 3, 11, device=cuda).view(torch.int32)
+    keys, vals = big[1:n + 1], big.flip(0)[3:]
+    assert keys.data_ptr() % 16 and vals.data_ptr() % 16
+    want = torch.sort(keys, stable=True)
+    kw = {"backend": gstt.Backend.PALLAS, "variant": variant,
+          "tile_rows": 8}
+    assert torch.equal(gstt.sort(keys, **kw), want.values)
+    sk, sv = gstt.sort_pairs(keys, vals, **kw)
+    assert torch.equal(sk, want.values)
+    assert torch.equal(sv, vals[want.indices])
+    assert torch.equal(gstt.argsort(keys, **kw), want.indices.int())
+
+
+def test_h100_tuning_row(cuda):
+    info = config.get_device_info(cuda)
+    if info.generation != "h100":
+        pytest.skip(f"no tuning row for {info.device_kind}")
+    row = config.get_tuning_parameters(info)
+    assert row.radix_tile_rows == 32 and row.measured is False
+    assert rts.default_tile_rows(cuda) == 32
