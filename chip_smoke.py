@@ -38,7 +38,27 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      downsweep launches; then one DeviceRadixSort(backend=PALLAS) sort;
   6. times: the PALLAS routes end to end beside flat torch.sort, and each
      radix kernel at the main path's shapes beside its bound, its plain
-     version and the one torch call that computes the same function.
+     version and the one torch call that computes the same function;
+  7. the radix16 and network kernels against their plain versions at
+     n = 2^28, on uniform, E020 and all-equal keys, each bit for bit:
+     global_histogram (also on a length that is not a multiple of 128); one
+     fused binning_pass on 1 and 3 planes at shifts 0 and 28 with its
+     cursors_out, and the same pass as the adversarial_segments chain;
+     local_stages (the whole in-tile schedule and one tail schedule) on 1
+     plane (1 key) and 4 planes (2 keys); global_stage at strides of one
+     and of four tiles;
+  8. the Backend.PALLAS path at n = 2^28 for the variants this adds:
+     "onesweep" (the default) and "radix16" on every key type and order,
+     both payload widths, sort_pairs_wide and argsort, "forward_sweep" and
+     "emulated_deadlocking" on keys and pairs, each held like phase 2 and
+     each call's launches of the four kernels asserted (the network's
+     (L - t + 1) in-tile passes and (L - t)(L - t + 1) / 2 global stages,
+     radix16's one histogram and one binning pass per pass that is not
+     skipped, per segment when segmented); then one sort each through
+     OneSweep, ForwardSweep and EmulatedDeadlocking;
+  9. times: the new variants end to end beside device_radix and flat
+     torch.sort, and each new kernel beside its bound, its plain version
+     and the one torch call that computes the same function, if any.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -55,6 +75,9 @@ import time
 
 N = 1 << 28
 L = 1 << 21
+# float32 outside the tensor cores, the H100 SXM data sheet's 32-bit
+# non-tensor rate (op/s), the peak for the network's 32-bit compares
+PEAK_OPS_32 = 67e12
 LANES = 128
 SEED = 2024
 
@@ -82,8 +105,9 @@ def main() -> int:
 
     import gpusorting_tpu_torch as gstt
     from gpusorting_tpu_torch.core import codec, prng
-    from gpusorting_tpu_torch.ops import (_nvcc, ffx, kernels, relocate,
-                                          rangesweep as rs, rts)
+    from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, kernels,
+                                          radix16, relocate, rangesweep as rs,
+                                          rts)
     from gpusorting_tpu_torch.utils import timing, validate
 
     dev = torch.device("cuda", 0)
@@ -111,7 +135,8 @@ def main() -> int:
 
     # ---- phase 0: build every kernel, one nvcc per source, all at once ----
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
-               rts.SOURCE)
+               rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
+               bitonic.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -588,6 +613,328 @@ def main() -> int:
     del ffx_counts, ffx_tiles, ffx_sums, ffx_table
     free()
 
+    # ---- phase 7: the radix16 and network kernels against plain ----------
+    r16_rows = rts.default_tile_rows(dev)
+    new_err = {"global_histogram": 0, "binning_pass": 0, "local_stages": 0,
+               "global_stage": 0}
+
+    def check_new(kname, got, want, what):
+        for g, w in zip(got, want):
+            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+            new_err[kname] = max(new_err[kname], err)
+            _require(torch.equal(g, w), f"{kname} != plain on {what}")
+
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
+                                 ("E020", gstt.EntropyPreset.E020, False),
+                                 ("all_equal", None, True)):
+        if equal:
+            x = torch.full((N,), 0x1234ABCD, dtype=torch.int32, device=dev)
+        else:
+            x = codec.encode_biased(prng.make_test_keys(
+                N, SEED + 11, torch.uint32, entropy, device=dev))
+        rides = tuple(prng.hybrid_taus_bits(N, SEED + j, device=dev)
+                      .view(torch.int32) for j in (12, 13))
+        for length in (N, N - 77):
+            check_new("global_histogram",
+                      [kernels.global_histogram(x[:length])],
+                      [kernels.global_histogram_plain(x[:length])],
+                      f"{name} n={length}")
+        emit(phase="kernel_vs_plain", kernel="global_histogram", input=name,
+             lengths=[N, N - 77], bit_exact=True)
+
+        planes = [x.view(-1, LANES), rides[0].view(-1, LANES),
+                  rides[1].view(-1, LANES)]
+        bases, _ = radix16._bases_all_passes(x)
+        T16 = N // (r16_rows * LANES)
+        segs = radix16.adversarial_segments(N, r16_rows)
+        bounds = sorted({0, T16} | set(segs))
+        for p in (0, 7):
+            shift = 4 * p
+            for ops in (planes[:1], planes):
+                got, cur = radix16.binning_pass(ops, bases[p], shift,
+                                                r16_rows)
+                want, wcur = radix16.binning_pass_plain(ops, bases[p], shift,
+                                                        r16_rows)
+                check_new("binning_pass", got + [cur], want + [wcur],
+                          f"{name} shift {shift}, {len(ops)} planes")
+                out, c = [torch.empty_like(y) for y in ops], bases[p]
+                for a, b in zip(bounds[:-1], bounds[1:]):
+                    _, c = radix16.binning_pass(
+                        [y[a * r16_rows:b * r16_rows] for y in ops], c, shift,
+                        r16_rows, out)
+                check_new("binning_pass", out + [c], got + [cur],
+                          f"{name} shift {shift}, {len(ops)} planes, "
+                          f"segments {segs}")
+                emit(phase="kernel_vs_plain", kernel="binning_pass",
+                     input=name, shift=shift, planes=len(ops), n=N,
+                     tile_rows=r16_rows, segments=list(segs),
+                     bit_exact=True)
+                del got, want, out
+        del planes
+
+        for num_ops, num_keys in ((1, 1), (4, 2)):
+            tr = bitonic.network_tile_rows(dev, num_ops)
+            te = tr * LANES
+            ops = [x.view(-1, LANES), idx.view(-1, LANES),
+                   rides[0].view(-1, LANES), rides[1].view(-1, LANES)]
+            ops = ops[:num_ops]
+            for sname, sched in (("in_tile", bitonic.in_tile_schedule(te)),
+                                 ("tail", bitonic.tail_schedule(te, 4 * te))):
+                check_new("local_stages",
+                          bitonic.local_stages(ops, sched, num_keys, tr),
+                          bitonic.local_stages_plain(ops, sched, num_keys,
+                                                     tr),
+                          f"{name} {sname}, {num_ops} planes")
+            for j in (te, 4 * te):
+                got = bitonic.global_stage([y.clone() for y in ops], j,
+                                           8 * j, num_keys, tr)
+                want = bitonic.global_stage_plain([y.clone() for y in ops],
+                                                  j, 8 * j, num_keys, tr)
+                check_new("global_stage", got, want,
+                          f"{name} j={j}, {num_ops} planes")
+                del got, want
+            emit(phase="kernel_vs_plain", kernel="local_stages+global_stage",
+                 input=name, planes=num_ops, num_keys=num_keys, n=N,
+                 tile_rows=tr, schedules=["in_tile", "tail k=4*tile"],
+                 global_strides=[te, 4 * te], bit_exact=True)
+            del ops
+        torch.cuda.synchronize()
+        del x, rides
+        free()
+    del idx
+    free()
+
+    # ---- phase 8: the new PALLAS variants through the public entry points
+    new_fns = (kernels.global_histogram, radix16.binning_pass,
+               bitonic.local_stages, bitonic.global_stage)
+
+    def new_counts():
+        return tuple(f.launches for f in new_fns)
+
+    def network_launches(num_ops):
+        L = N.bit_length() - 1
+        t = (bitonic.network_tile_rows(dev, num_ops) * LANES).bit_length() - 1
+        return (0, 0, L - t + 1, (L - t) * (L - t + 1) // 2)
+
+    def radix16_launches(keys, segmented):
+        codes = codec.encode_biased(keys)
+        varying = sum(int(kernels.digits(codes, 4 * p).unique().numel() > 1)
+                      for p in range(8))
+        if segmented:
+            segs = radix16.adversarial_segments(N, r16_rows)
+            return (1, 8 * (len(segs) + 1), 0, 0)
+        return (1, varying, 0, 0)
+
+    def expected(variant, keys, num_ops):
+        if variant in ("onesweep", "forward_sweep"):
+            return network_launches(num_ops)
+        return radix16_launches(keys, variant == "emulated_deadlocking")
+
+    for f in new_fns:
+        f.launches = 0
+    new_runs = []
+
+    def new_call(label, fn, want):
+        before = new_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(new_counts(), before))
+        _require(delta == want, f"{label}: launches {delta} != {want}")
+        new_runs.append({"call": label, "launches": delta})
+        return out
+
+    key_cases = (("sort_u32", lambda: prng.make_test_keys(
+                     N, SEED + 4, torch.uint32, device=dev)),
+                 ("sort_i32", lambda: prng.make_test_keys(
+                     N, SEED + 6, torch.int32, gstt.EntropyPreset.E054,
+                     device=dev)),
+                 ("sort_f32", f32_keys))
+    for variant in ("onesweep", "radix16", "forward_sweep",
+                    "emulated_deadlocking"):
+        full = variant in ("onesweep", "radix16")
+        pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
+        for kname, make in key_cases if full else key_cases[:1]:
+            keys = make()
+            perm = oracle_perm(keys)
+            for order in orders if full else orders[:1]:
+                out = new_call(f"{variant} {kname} {order.value}",
+                               lambda: gstt.sort(keys, order=order, **pal),
+                               expected(variant, keys, 1))
+                _require(same_bits(out, keys, perm, order),
+                         f"{variant} {kname} {order.value} != torch.sort")
+                del out
+            del keys, perm
+            free()
+        pair_cases = ((("sort_pairs_u32", torch.uint32, 3),
+                       ("sort_pairs_i64", torch.int64, 4)) if full
+                      else (("sort_pairs_u32", torch.uint32, 3),))
+        for pname, pdtype, net_ops in pair_cases:
+            keys, vals = prng.make_test_pairs(N, SEED + 7, torch.uint32,
+                                              pdtype, gstt.EntropyPreset.E033,
+                                              device=dev)
+            perm = oracle_perm(keys)
+            for order in orders if full else orders[:1]:
+                ok, ov = new_call(
+                    f"{variant} {pname} {order.value}",
+                    lambda: gstt.sort_pairs(keys, vals, order=order, **pal),
+                    expected(variant, keys, net_ops))
+                _require(same_bits(ok, keys, perm, order)
+                         and same_bits(ov, vals, perm, order),
+                         f"{variant} {pname} {order.value} != torch.sort")
+                _require(int(validate.count_pair_violations(ok, ov, order))
+                         == 0, f"{variant} {pname}: stability violated")
+                del ok, ov
+            if pdtype == torch.int64:
+                lo, hi = codec.split_wide(vals)
+                for order in orders:
+                    gk, glo, ghi = new_call(
+                        f"{variant} sort_pairs_wide {order.value}",
+                        lambda: gstt.sort_pairs_wide(keys, lo, hi,
+                                                     order=order, **pal),
+                        expected(variant, keys, 4))
+                    _require(same_bits(gk, keys, perm, order)
+                             and same_bits(glo, lo, perm, order)
+                             and same_bits(ghi, hi, perm, order),
+                             f"{variant} sort_pairs_wide {order.value} "
+                             "!= torch.sort")
+                    del gk, glo, ghi
+                del lo, hi
+            del keys, vals, perm
+            free()
+        if full:
+            keys = prng.make_test_keys(N, SEED + 8, torch.uint32,
+                                       gstt.EntropyPreset.E081, device=dev)
+            perm = oracle_perm(keys).to(torch.int32)
+            for order in orders:
+                out = new_call(f"{variant} argsort {order.value}",
+                               lambda: gstt.argsort(keys, order=order, **pal),
+                               expected(variant, keys, 3))
+                _require(torch.equal(out, flip(perm, order)),
+                         f"{variant} argsort {order.value} != torch.sort")
+                del out
+            del keys, perm
+            free()
+    for cls, variant in ((gstt.OneSweep, "onesweep"),
+                         (gstt.ForwardSweep, "forward_sweep"),
+                         (gstt.EmulatedDeadlocking, "emulated_deadlocking")):
+        keys = prng.make_test_keys(N, SEED + 10, torch.float32, device=dev)
+        sorter = cls(gstt.SortConfig(backend=gstt.Backend.PALLAS))
+        out = new_call(f"{cls.__name__}.sort", lambda: sorter.sort(keys),
+                       expected(variant, keys, 1))
+        _require(same_bits(out, keys, oracle_perm(keys),
+                           gstt.Order.ASCENDING),
+                 f"{cls.__name__}(PALLAS).sort != torch.sort")
+        del keys, out
+        free()
+    new_launches = dict(zip(("global_histogram", "binning_pass",
+                             "local_stages", "global_stage"), new_counts()))
+    _require(all(v > 0 for v in new_launches.values()),
+             f"the new PALLAS variants missed a kernel: {new_launches}")
+    emit(phase="pallas_path_new_variants", n=N, radix16_tile_rows=r16_rows,
+         network_tile_rows={k: bitonic.network_tile_rows(dev, k)
+                            for k in (1, 3, 4)},
+         launches=new_launches, runs=new_runs, bit_exact=True)
+
+    # ---- phase 9: times of the new variants and of each new kernel --------
+    payload = torch.arange(N, dtype=torch.int32, device=dev)
+    for what, make_fn in (
+            ("keys", lambda b, v: lambda k: gstt.sort(k, backend=b,
+                                                      variant=v)),
+            ("pairs", lambda b, v: lambda k: gstt.sort_pairs(
+                k, payload, backend=b, variant=v)),
+            ("argsort", lambda b, v: lambda k: gstt.argsort(k, backend=b,
+                                                            variant=v))):
+        routes = [(f"pallas_{v}", gstt.Backend.PALLAS, v)
+                  for v in ("onesweep", "forward_sweep", "radix16",
+                            "emulated_deadlocking", "device_radix")]
+        routes.append(("flat_torch_sort", gstt.Backend.XLA, "onesweep"))
+        for rep in ("", "_2"):
+            for route, backend, variant in routes:
+                r = timing.batch_timing(make_fn(backend, variant), N,
+                                        batch=batch, seed=SEED, device=dev)
+                emit(phase="end_to_end", what=what, route=route + rep, n=N,
+                     batch=batch, ms=r["seconds_per_sort"] * 1e3,
+                     spread_ms=[r["spread_min_s"] * 1e3,
+                                r["spread_max_s"] * 1e3],
+                     keys_per_sec=r["keys_per_sec"])
+                free()
+    del payload
+    free()
+
+    x = codec.encode_biased(prng.make_test_keys(N, SEED, torch.uint32,
+                                                device=dev))
+    ride = torch.arange(N, dtype=torch.int32, device=dev)
+    planes3 = [x.view(-1, LANES), ride.view(-1, LANES),
+               ride.clone().view(-1, LANES)]
+    bases, _ = radix16._bases_all_passes(x)
+    u = x ^ codec.SIGN
+    new_times = {
+        "global_histogram": dict(
+            ms=median_ms(lambda: kernels.global_histogram(x)),
+            plain_ms=median_ms(lambda: kernels.global_histogram_plain(x),
+                               iters=3),
+            # torch.bincount of p * 256 + byte p, the key built in the call
+            library_ms=median_ms(lambda: torch.bincount(torch.cat(
+                [((u >> (8 * p)) & 255) + 256 * p for p in range(4)]),
+                minlength=1024)),
+            bound_ms=(4 * N + 4 * 1024) / bw * 1e3, launches_per_sort=1,
+            library="torch.bincount(p*256+byte), key built in the call"),
+    }
+    for n_planes in (1, 3):
+        ops = planes3[:n_planes]
+        new_times[f"binning_pass_{n_planes}"] = dict(
+            ms=median_ms(lambda: radix16.binning_pass(ops, bases[7], 28,
+                                                      r16_rows)),
+            plain_ms=median_ms(lambda: radix16.binning_pass_plain(
+                ops, bases[7], 28, r16_rows), iters=3),
+            library_ms=None,
+            bound_ms=8 * N * n_planes / bw * 1e3, launches_per_sort=8,
+            library="none: no one torch call places a stable digit "
+                    "partition at given cursors")
+    tr1 = bitonic.network_tile_rows(dev, 1)
+    te1 = tr1 * LANES
+    net1 = [x.view(-1, LANES)]
+    for sname, sched in (("in_tile", bitonic.in_tile_schedule(te1)),
+                         ("tail", bitonic.tail_schedule(te1, 4 * te1))):
+        # a compare-exchange of one 1-key plane is 4 32-bit operations per
+        # pair (2 comparisons, 2 selections), at the card's 32-bit
+        # non-tensor peak; its bytes are the plane read and written once
+        ops_ms = sched.shape[0] * (N // 2) * 4 / PEAK_OPS_32 * 1e3
+        bytes_ms = 8 * N / bw * 1e3
+        new_times[f"local_stages_{sname}"] = dict(
+            ms=median_ms(lambda: bitonic.local_stages(net1, sched, 1, tr1)),
+            plain_ms=median_ms(lambda: bitonic.local_stages_plain(
+                net1, sched, 1, tr1), iters=3),
+            library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms > bytes_ms else "bytes",
+            ops_ms=ops_ms, bytes_ms=bytes_ms, stages=sched.shape[0],
+            library="none: no one torch call runs a partial bitonic "
+                    "schedule")
+    gplanes = [x.clone().view(-1, LANES)]
+    new_times["global_stage"] = dict(
+        ms=median_ms(lambda: bitonic.global_stage(gplanes, N // 2, N, 1,
+                                                  tr1)),
+        plain_ms=median_ms(lambda: bitonic.global_stage_plain(
+            gplanes, N // 2, N, 1, tr1), iters=3),
+        library_ms=None, bound_ms=8 * N / bw * 1e3,
+        library="none: no one torch call runs one compare-exchange stage")
+    for kname, rec in new_times.items():
+        emit(phase="per_kernel", kernel=kname, n=N, **rec)
+    del x, u, ride, planes3, bases, net1, gplanes
+    free()
+
+    def new_row(name, kname, source, replaces, times):
+        return {"name": name, "route": "cuda",
+                "source": f"gpusorting_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": new_launches[kname],
+                "max_abs_err": new_err[kname],
+                "ms": times["ms"], "plain_ms": times["plain_ms"],
+                "bound_ms": times["bound_ms"],
+                "bound_by": times.get("bound_by", "bytes"),
+                "library_ms": times["library_ms"], "card": card}
+
     def radix_row(name, kname, source, replaces, times):
         return {"name": name, "route": "cuda",
                 "source": f"gpusorting_tpu_torch/csrc/{source}",
@@ -595,7 +942,8 @@ def main() -> int:
                 "launches": pallas_launches[kname],
                 "max_abs_err": radix_err[kname],
                 "ms": times["ms"], "plain_ms": times["plain_ms"],
-                "bound_ms": times["bound_ms"], "bound_by": "bytes",
+                "bound_ms": times["bound_ms"],
+                "bound_by": times.get("bound_by", "bytes"),
                 "library_ms": times["library_ms"], "card": card}
 
     print(json.dumps({"kernels": [{
@@ -619,7 +967,19 @@ def main() -> int:
                   radix_times["exclusive_scan"]),
         radix_row("downsweep", "downsweep", "downsweep.cu",
                   "gpusorting_tpu/ops/rts.py:62",
-                  radix_times["downsweep_1"])]}), flush=True)
+                  radix_times["downsweep_1"]),
+        new_row("global_hist", "global_histogram", "global_hist.cu",
+                "gpusorting_tpu/ops/kernels.py:62",
+                new_times["global_histogram"]),
+        new_row("binning", "binning_pass", "binning.cu",
+                "gpusorting_tpu/ops/radix16.py:307",
+                new_times["binning_pass_1"]),
+        new_row("local_stages", "local_stages", "bitonic.cu",
+                "gpusorting_tpu/ops/bitonic.py:94",
+                new_times["local_stages_in_tile"]),
+        new_row("global_stage", "global_stage", "bitonic.cu",
+                "gpusorting_tpu/ops/bitonic.py:138",
+                new_times["global_stage"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

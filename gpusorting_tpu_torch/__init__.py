@@ -5,8 +5,9 @@ entry points, key codes, stability and descending rules, held bit-exact
 against `gpusorting_tpu` on the same inputs.  It imports neither JAX nor
 the JAX package.  Entry points compute on the device of the tensor given;
 every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
-kernel (so far: the range-exchange relocate and the reduce-then-scan
-Upsweep, scan and downsweep, `csrc/`).
+kernel (so far: the range-exchange relocate; the reduce-then-scan
+Upsweep, scan and downsweep; radix16's global histogram and binning pass;
+the sorting network's in-tile and cross-tile stages, `csrc/`).
 
 Quick start:
     import gpusorting_tpu_torch as gstt

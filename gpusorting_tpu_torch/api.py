@@ -10,8 +10,9 @@ Port of `gpusorting_tpu/api.py`.  Reference analogs:
     EmulatedDeadlocking and the FFXParallelSort baseline (README.md:5-15),
     each a class naming its `variant` of the `Backend.PALLAS` router.
 
-A sorter makes its test inputs on the default device: the CUDA card when
-torch sees one, else the CPU.
+A sorter makes its test inputs on the device it is given, the CUDA card by
+default; it raises where that card is absent and never picks the CPU by
+itself.
 """
 
 from __future__ import annotations
@@ -67,15 +68,19 @@ class GPUSorterBase:
 
     variant = "onesweep"
 
-    def __init__(self, config: SortConfig | None = None, tuning=None, **kw):
+    def __init__(self, config: SortConfig | None = None, tuning=None,
+                 device: torch.device | str = "cuda", **kw):
         """tuning: optional manual TuningParameters — the analog of the
         reference's constructors that take explicit tuning instead of the
         device-table lookup (GPUSortBase.h:57-155).  When given, its
-        radix_tile_rows is passed to the PALLAS engines as `tile_rows`."""
+        radix_tile_rows is passed to the PALLAS engines as `tile_rows`.
+
+        device: where the harness (validate_sort, test_all, batch_timing)
+        makes its inputs, and whose tuning row applies; "cuda" raises when
+        torch sees no card ("cpu" runs the kernels' plain versions)."""
         self.config = config or SortConfig(**kw)
-        self.device_info = get_device_info()
-        self.device = torch.device(
-            "cuda" if self.device_info.platform == "cuda" else "cpu")
+        self.device = prng.require_device(device)
+        self.device_info = get_device_info(self.device)
         self._manual_tuning = tuning is not None
         self.tuning = tuning if tuning is not None else get_tuning_parameters(
             self.device_info, self.config.mode)
@@ -194,7 +199,12 @@ class GPUSorterBase:
 
 
 class OneSweep(GPUSorterBase):
-    """Single-pass-scan family (reference: OneSweep.hlsl / OneSweep.cu)."""
+    """Single-pass-scan family (reference: OneSweep.hlsl / OneSweep.cu).
+
+    As in the JAX package, its PALLAS variant runs the bitonic network
+    (ops/bitonic.py): on the card the in-tile `local_stages` and the
+    cross-tile `global_stage` kernels of `csrc/bitonic.cu`.  The fused
+    single-pass radix engine is variant "radix16"."""
 
     variant = "onesweep"
 
@@ -208,14 +218,21 @@ class DeviceRadixSort(GPUSorterBase):
 
 class ForwardSweep(OneSweep):
     """Portable lookback-with-fallback family (reference:
-    ForwardSweep.hlsl)."""
+    ForwardSweep.hlsl).  Its PALLAS variant runs the bitonic network, as
+    OneSweep's does."""
 
     variant = "forward_sweep"
 
 
 class EmulatedDeadlocking(OneSweep):
     """Adversarial-scheduling test variant (reference:
-    EmulatedDeadlocking.hlsl:15-247); must give identical output."""
+    EmulatedDeadlocking.hlsl:15-247); must give identical output.
+
+    Its PALLAS variant runs the fused radix-16 engine with every pass cut
+    at `radix16.adversarial_segments` (after the first tile, near thirds,
+    before the last): on the card one `csrc/binning.cu` launch per tile
+    range, each resuming from the last one's cursors, after one
+    `csrc/global_hist.cu` launch."""
 
     variant = "emulated_deadlocking"
 
@@ -243,16 +260,18 @@ class FFXParallelSort(GPUSorterBase):
 
 
 def super_test(sorter_cls=OneSweep, sizes: tuple = (1 << 12, (1 << 12) + 13),
-               backend: Backend = Backend.AUTO) -> TestReport:
+               backend: Backend = Backend.AUTO,
+               device: torch.device | str = "cuda") -> TestReport:
     """3 key types x 3 payload types x 2 orders = 18 configs, each
-    validated."""
+    validated on `device`."""
     report = TestReport()
     for kt in ALL_KEY_TYPES:
         for pt in ALL_PAYLOAD_TYPES_32:
             for order in ALL_ORDERS:
                 s = sorter_cls(SortConfig(mode=Mode.PAIRS, order=order,
                                           key_type=kt, payload_type=pt,
-                                          backend=backend))
+                                          backend=backend),
+                               device=device)
                 for n in sizes:
                     ok = s.validate_sort(int(n), seed=int(n))
                     report.record(

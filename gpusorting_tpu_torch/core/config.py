@@ -175,32 +175,53 @@ class TuningParameters:
 
     The JAX package's row also carries TPU budgets (VMEM limits, bucket
     bits, in-VMEM sort caps); no ported module reads them, so they are not
-    here and `tuning_from_jax_fields` drops them.
+    here and `tuning_from_jax_fields` drops them.  Its `vmem_limit_bytes`,
+    which sizes the network's tile there, has no counterpart: here
+    `network_smem_bytes` does.
 
-      partition_rows   — rows of 128 keys per partition, the reference's
-                         PART_SIZE analog: the sorter objects' boundary
-                         test window is [partition_size, 2*partition_size].
-      radix_tile_rows  — rows of 128 keys per Upsweep/downsweep tile of the
-                         reduce-then-scan engine (ops/rts.py).
-      measured         — True only for a row measured on its card.
+      partition_rows     — rows of 128 keys per partition, the reference's
+                           PART_SIZE analog: the sorter objects' boundary
+                           test window is [partition_size, 2*partition_size].
+      radix_tile_rows    — rows of 128 keys per tile of the radix engines
+                           (ops/rts.py, ops/radix16.py).
+      network_smem_bytes — shared memory one block of the sorting network's
+                           in-tile kernel may hold its tile's planes in
+                           (ops/bitonic.py); 48 KB by default, what every
+                           CUDA card gives a block without opting in.
+      measured           — True only for a row measured on its card.
     """
 
     partition_rows: int
     radix_tile_rows: int = 512
+    network_smem_bytes: int = 48 << 10
     measured: bool = False
 
     @property
     def partition_size(self) -> int:
         return self.partition_rows * 128
 
+    def network_tile_rows(self, num_ops: int) -> int:
+        """Rows of 128 keys per tile of the sorting network: the largest
+        power of two whose `num_ops` int32 planes fit `network_smem_bytes`
+        (port of the JAX `TuningParameters.network_tile_rows`, which sizes
+        the tile by VMEM instead)."""
+        rows = self.network_smem_bytes // (num_ops * 128 * 4)
+        if rows < 1:
+            raise ValueError(f"network_smem_bytes={self.network_smem_bytes} "
+                             f"holds no 128-key row of {num_ops} planes")
+        return 1 << (rows.bit_length() - 1)
+
 
 _TUNING_TABLE = {
     # H100: NOT MEASURED.  32 rows = 4096 keys per tile, near the
     # reference's 3840-key DeviceRadixSort partition (SURVEY.md:103); a
-    # tile sweep on the card is to replace it.
+    # tile sweep on the card is to replace it.  The network's budget is
+    # the 227 KB (232448 bytes) of shared memory an H100 block may opt in
+    # to: a 2^15-key tile for one plane, 2^14 for two or three, 2^13 for
+    # four.
     "h100": {
-        Mode.KEYS_ONLY: TuningParameters(32, 32, measured=False),
-        Mode.PAIRS: TuningParameters(32, 32, measured=False),
+        Mode.KEYS_ONLY: TuningParameters(32, 32, 232448, measured=False),
+        Mode.PAIRS: TuningParameters(32, 32, 232448, measured=False),
     },
 }
 # Every other device, the CPU included (the JAX package's generic row).

@@ -1,5 +1,5 @@
 // Device helpers shared by the radix kernels (tile_hist4.cu,
-// exclusive_scan.cu, downsweep.cu).
+// exclusive_scan.cu, downsweep.cu, binning.cu, global_hist.cu).
 
 #pragma once
 
@@ -48,6 +48,139 @@ __device__ unsigned block_exclusive(unsigned s, unsigned* total) {
   *total = block_total;
   __syncthreads();
   return r;
+}
+
+// ---- the stable scatter of one tile, shared by downsweep.cu and binning.cu
+
+constexpr int kScatterThreads = 256;   // the block size of its callers
+constexpr int kScatterItems = 8;       // consecutive keys per thread
+constexpr int kScatterChunk = kScatterThreads * kScatterItems;
+constexpr int kMaxPlanes = 3;
+
+// 1-3 int32 planes (plane 0 holds the biased key codes, the others ride)
+// and their outputs.
+struct Planes {
+  const int* in[kMaxPlanes];
+  int* out[kMaxPlanes];
+};
+
+// One padding word every 32 counters: the scan's threads read 16
+// consecutive counters each, and the padding spreads them over the banks.
+__device__ __forceinline__ int padded_counter(int e) { return e + (e >> 5); }
+
+// Stable scatter of the tile [base, base + tile_elems) of every plane: the
+// element at i with digit d goes to out[cursor[d] + rank(i)], rank(i)
+// counting the tile's earlier elements of digit d, and cursor[] (16 ints in
+// shared memory) ends advanced past the tile.  The caller fills cursor[]
+// before the call; it is first read after a barrier inside.  tile_elems is
+// a multiple of kScatterItems.  Every thread of the block must call it.
+//
+// The tile is walked in chunks of kScatterChunk elements.  Thread j loads
+// the kScatterItems consecutive elements from j * kScatterItems with
+// 16-byte loads and counts their digits in its own column of a (digit,
+// thread) counter table; one block scan of that table in digit-major order
+// gives every element its stable place in the chunk sorted by digit.  Each
+// plane is then shuffled through shared memory into that order and written
+// by consecutive threads to consecutive addresses within each digit's run,
+// so the scattered writes still coalesce.
+template <int NOPS>
+__device__ void scatter_tile(const Planes& planes, long long base,
+                             long long tile_elems, int shift, int* cursor) {
+  constexpr int kThreads = kScatterThreads;
+  constexpr int kItems = kScatterItems;
+  constexpr int kChunk = kScatterChunk;
+  constexpr int kDigits = 16;
+  constexpr int kCounters = kDigits * kThreads;
+  constexpr int kPerThread = kCounters / kThreads;
+  static_assert(kPerThread == kDigits, "each thread scans 16 counters");
+  static_assert(NOPS >= 1 && NOPS <= kMaxPlanes, "1-3 planes");
+
+  __shared__ unsigned counters[kCounters + kCounters / 32];
+  __shared__ int vals[kChunk];
+  __shared__ unsigned char digs[kChunk];
+  __shared__ int start[kDigits + 1];
+
+  const int tid = threadIdx.x;
+  for (long long c0 = 0; c0 < tile_elems; c0 += kChunk) {
+    for (int e = tid; e < kCounters; e += kThreads) {
+      counters[padded_counter(e)] = 0;
+    }
+    __syncthreads();
+
+    // a tile is a whole number of kItems groups: a thread's group is
+    // either wholly inside the tile or wholly past its end
+    const long long i0 = c0 + (long long)tid * kItems;
+    const bool valid = i0 < tile_elems;
+    int v[NOPS][kItems];
+    unsigned d[kItems];
+    unsigned r[kItems];
+    if (valid) {
+#pragma unroll
+      for (int q = 0; q < NOPS; ++q) {
+        const int4* src =
+            reinterpret_cast<const int4*>(planes.in[q] + base + i0);
+        const int4 a = __ldg(src);
+        const int4 b = __ldg(src + 1);
+        v[q][0] = a.x; v[q][1] = a.y; v[q][2] = a.z; v[q][3] = a.w;
+        v[q][4] = b.x; v[q][5] = b.y; v[q][6] = b.z; v[q][7] = b.w;
+      }
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        d[it] = digit_of(v[0][it], shift);
+        const int e = padded_counter(d[it] * kThreads + tid);
+        r[it] = counters[e];
+        counters[e] = r[it] + 1;
+      }
+    }
+    __syncthreads();
+
+    // exclusive scan of the counters in (digit, thread) order
+    unsigned c[kPerThread];
+    unsigned s = 0;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      c[i] = counters[padded_counter(tid * kPerThread + i)];
+      s += c[i];
+    }
+    unsigned total;
+    unsigned p = block_exclusive<kThreads>(s, &total);
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      counters[padded_counter(tid * kPerThread + i)] = p;
+      p += c[i];
+    }
+    __syncthreads();
+
+    if (tid < kDigits) start[tid] = counters[padded_counter(tid * kThreads)];
+    if (tid == kDigits) start[kDigits] = (int)total;
+    int pos[kItems];
+    if (valid) {
+#pragma unroll
+      for (int it = 0; it < kItems; ++it) {
+        pos[it] = counters[padded_counter(d[it] * kThreads + tid)] + r[it];
+        digs[pos[it]] = (unsigned char)d[it];
+      }
+    }
+    __syncthreads();
+
+    const long long left = tile_elems - c0;
+    const int chunk_n = left < kChunk ? (int)left : kChunk;
+#pragma unroll
+    for (int q = 0; q < NOPS; ++q) {
+      if (valid) {
+#pragma unroll
+        for (int it = 0; it < kItems; ++it) vals[pos[it]] = v[q][it];
+      }
+      __syncthreads();
+      int* out = planes.out[q];
+      for (int k = tid; k < chunk_n; k += kThreads) {
+        const int dd = digs[k];
+        out[(long long)cursor[dd] + (k - start[dd])] = vals[k];
+      }
+      __syncthreads();
+    }
+    if (tid < kDigits) cursor[tid] += start[tid + 1] - start[tid];
+  }
 }
 
 }  // namespace gst

@@ -6,9 +6,13 @@ the device of the tensor it is given.  `backend=AUTO` asks
 routing row, sorts at or above the row's thresholds run the range-exchange
 engine (ops/rangesweep.py, whose exchange is the hand-written relocate
 kernel); everything else runs the flat `torch.sort` (ops/flat_sort.py).
-`backend=PALLAS` runs the engine family named by `variant=` (ops/radix.py:
-"device_radix" and "ffx", whose Upsweep, scan and downsweep are
-hand-written kernels), with `tile_rows=` overriding the radix tile.  All
+`backend=PALLAS` runs the engine family named by `variant=` (ops/radix.py):
+"onesweep" (the default) and "forward_sweep" the bitonic network, whose
+in-tile and cross-tile stages are hand-written kernels; "radix16" the fused
+radix-16 engine (global histogram and one binning pass per digit, both
+kernels) and "emulated_deadlocking" the same in adversarial tile-range
+segments; "device_radix" and "ffx" the reduce-then-scan engines (Upsweep,
+scan and downsweep kernels).  `tile_rows=` overrides the radix tile.  All
 sort the same biased key codes (core.codec), so outputs are bit-identical
 across routes.
 """

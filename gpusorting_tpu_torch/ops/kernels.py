@@ -1,16 +1,17 @@
-"""The radix engines' building blocks: per-tile 4-bit digit counts (the
-Upsweep) and the exclusive scan, each a hand-written CUDA kernel beside its
-plain PyTorch version.
+"""The radix engines' building blocks: the global 8-bit digit counts, the
+per-tile 4-bit digit counts (the Upsweep) and the exclusive scan, each a
+hand-written CUDA kernel beside its plain PyTorch version.
 
 Port of `gpusorting_tpu/ops/kernels.py`:
+  global_histogram <- `_hist_kernel` (kernels.py:62), kernel
+                      `csrc/global_hist.cu` (shared-memory counters and
+                      global atomics: the TPU kernel's sum across an
+                      in-order grid has no CUDA counterpart)
   tile_histogram4  <- `_tile_hist4_kernel` (kernels.py:144), kernel
                       `csrc/tile_hist4.cu`
   exclusive_scan   <- `_scan_kernel` (kernels.py:209), kernel
-                      `csrc/exclusive_scan.cu` (reduce-then-scan: the TPU
-                      kernel's carry across an in-order grid has no CUDA
-                      counterpart)
-`global_histogram` (kernels.py:115) serves only the fused radix16 engine
-and comes with it.
+                      `csrc/exclusive_scan.cu` (reduce-then-scan, for the
+                      same reason)
 
 Codes are the port's biased int32 carriers (`core/codec.py`): the digit at
 `shift` is `((x ^ 0x80000000) >> shift) & 15`.  Each wrapper launches its
@@ -30,6 +31,7 @@ from . import _nvcc
 
 LANES = 128
 NBUCKETS = 16
+GLOBAL_HIST_SOURCE = _nvcc.CSRC / "global_hist.cu"
 HIST_SOURCE = _nvcc.CSRC / "tile_hist4.cu"
 SCAN_SOURCE = _nvcc.CSRC / "exclusive_scan.cu"
 SCAN_TILE = 2048    # elements per block of csrc/exclusive_scan.cu (kTile)
@@ -52,6 +54,63 @@ def check_int32(op: str, t: torch.Tensor) -> None:
     follow them)."""
     if t.dtype != torch.int32:
         raise TypeError(f"{op}: expected int32, got {t.dtype}")
+
+
+# ---- global_histogram -----------------------------------------------------
+
+
+def global_histogram_plain(codes: torch.Tensor,
+                           passes: int = 4) -> torch.Tensor:
+    """Plain version: one `index_add_` of ones per digit position."""
+    u = codes ^ codec.SIGN           # the u32 codes' bits, as int32
+    counts = torch.zeros((passes, 256), dtype=torch.int32,
+                         device=codes.device)
+    ones = torch.ones_like(u)
+    for p in range(passes):
+        counts[p].index_add_(0, ((u >> (8 * p)) & 255).to(torch.int64), ones)
+    return counts
+
+
+@functools.cache
+def _global_hist_library() -> ctypes.CDLL:
+    lib = _nvcc.load(GLOBAL_HIST_SOURCE)
+    fn = lib.gst_global_hist
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def global_histogram(codes: torch.Tensor, passes: int = 4) -> torch.Tensor:
+    """(passes, 256) int32 counts of the 8-bit digits 0..passes-1 of 1-D
+    biased int32 codes (the digits of the u32 codes), in one read.
+
+    A CUDA tensor launches `csrc/global_hist.cu` (or raises); a CPU tensor
+    takes `global_histogram_plain`."""
+    if codes.ndim != 1:
+        raise ValueError(f"global_histogram takes a 1-D tensor, got "
+                         f"{tuple(codes.shape)}")
+    if not 1 <= passes <= 4:
+        raise ValueError(f"passes must be in [1, 4], got {passes}")
+    if codes.device.type == "cpu":
+        check_int32("global_histogram", codes)
+        return global_histogram_plain(codes, passes)
+    if codes.device.type != "cuda":
+        raise ValueError(f"global_histogram: unsupported device "
+                         f"{codes.device}")
+    dev = codes.device
+    n = codes.shape[0]
+    _nvcc.check("global_histogram", "codes", codes, (n,), dev)
+    if n >= 1 << 31:
+        raise ValueError(f"global_histogram: {n} codes exceed int32 counts")
+    out = torch.empty((passes, 256), dtype=torch.int32, device=dev)
+    _nvcc.launch("global_histogram", _global_hist_library().gst_global_hist,
+                 codes.data_ptr(), n, passes, out.data_ptr(), device=dev)
+    global_histogram.launches += 1
+    return out
+
+
+global_histogram.launches = 0
 
 
 # ---- Upsweep: tile_histogram4 ---------------------------------------------

@@ -3,17 +3,19 @@
 Port of `gpusorting_tpu/ops/radix.py`.  The JAX package's variant map
 (reference README.md:5-15 families -> engines):
 
-  "device_radix"             -> reduce-then-scan (ops/rts.py)       ported
-  "ffx"                      -> 5-stage FFX pipeline (ops/ffx.py)   ported
-  "onesweep"/"forward_sweep" -> Batcher network (ops/bitonic.py)
+  "onesweep"/"forward_sweep" -> Batcher network (ops/bitonic.py), the
+                                default; any other unknown name too
   "radix16"                  -> fused single-binning-pass LSD
-  "emulated_deadlocking"     -> radix16 in adversarial segments
-  "splitsweep", "mergesweep" -> their own modules
+                                (ops/radix16.py)
+  "emulated_deadlocking"     -> radix16 in adversarial tile-range segments
+  "device_radix"             -> reduce-then-scan (ops/rts.py)
+  "ffx"                      -> 5-stage FFX pipeline (ops/ffx.py)
+  "splitsweep", "mergesweep" -> their own modules, not ported yet: they
+                                raise NotImplementedError naming their
+                                ROADMAP item and reach no other engine
 
-A variant whose engine is not ported raises NotImplementedError naming its
-ROADMAP item; it never falls through to another engine.  Every engine
-sorts the same biased key codes, so outputs are bit-exact across engines
-and with the flat `torch.sort`.
+Every engine sorts the same biased key codes, so outputs are bit-exact
+across engines and with the flat `torch.sort`.
 """
 
 from __future__ import annotations
@@ -22,55 +24,76 @@ import torch
 
 from ..core import codec
 from ..core.config import Order
-from . import ffx, rts
+from . import bitonic, ffx, radix16, rts
 from .flat_sort import _flip
 
-_NETWORK = "ops/bitonic.py, ROADMAP.md Queue 1 #9 and Queue 2 #10-#11"
-_RADIX16 = "ops/radix16.py, ROADMAP.md Queue 1 #7 and Queue 2 #2, #5"
 _NOT_PORTED = {
-    "onesweep": _NETWORK,
-    "forward_sweep": _NETWORK,
-    "radix16": _RADIX16,
-    "emulated_deadlocking": _RADIX16,
     "splitsweep": "ops/splitsweep.py, ROADMAP.md Queue 1 #8",
     "mergesweep": "ops/mergesweep.py, ROADMAP.md Queue 1 #9 and Queue 2 "
                   "#12-#13",
 }
-PORTED = ("device_radix", "ffx")
+PORTED = ("device_radix", "ffx", "onesweep", "forward_sweep", "radix16",
+          "emulated_deadlocking")
 
 
 def _require_ported(variant: str) -> None:
-    if variant not in PORTED:
-        # the JAX router sends any other name to the network
+    if variant in _NOT_PORTED:
         raise NotImplementedError(
-            f"variant {variant!r} is not ported yet: "
-            f"{_NOT_PORTED.get(variant, _NETWORK)}")
+            f"variant {variant!r} is not ported yet: {_NOT_PORTED[variant]}")
+
+
+def _tile(tile_rows: int | None, codes: torch.Tensor, pairs: bool) -> int:
+    if tile_rows is None:
+        return rts.default_tile_rows(codes.device, pairs=pairs)
+    return tile_rows
+
+
+def _sort_codes(codes: torch.Tensor, variant: str, tile_rows: int | None):
+    if variant == "device_radix":
+        return rts.sort_codes_rts(codes, tile_rows=tile_rows)
+    if variant == "radix16":
+        return radix16.sort_codes_radix16(codes, tile_rows=tile_rows)
+    if variant == "ffx":
+        return ffx.sort_codes_ffx(codes)
+    if variant == "emulated_deadlocking":
+        tr = _tile(tile_rows, codes, pairs=False)
+        return radix16.sort_codes_radix16(
+            codes, tile_rows=tr,
+            segments=radix16.adversarial_segments(codes.shape[0], tr))
+    return bitonic.sort_codes(codes)
 
 
 def sort_codes_with_rides(codes: torch.Tensor, rides: tuple, variant: str,
                           tile_rows: int | None = None):
     """Stable sort of biased int32 codes with int32 ride planes (1 ride = a
     32-bit payload, 2 = a 64-bit payload's lo/hi) through the named engine.
-    Returns (sorted_codes, *permuted_rides).  "ffx" ignores `tile_rows`."""
+    Returns (sorted_codes, *permuted_rides).  "ffx" and the network ignore
+    `tile_rows`."""
     _require_ported(variant)
     if variant == "device_radix":
-        if tile_rows is None:
-            tile_rows = rts.default_tile_rows(codes.device, pairs=True)
-        return rts._sort_rts((codes,) + rides, tile_rows)
-    return ffx._sort_ffx((codes,) + rides)
+        return rts._sort_rts((codes,) + rides,
+                             _tile(tile_rows, codes, pairs=True))
+    if variant == "radix16":
+        return radix16._sort_radix16((codes,) + rides,
+                                     _tile(tile_rows, codes, pairs=True))
+    if variant == "ffx":
+        return ffx._sort_ffx((codes,) + rides)
+    if variant == "emulated_deadlocking":
+        tr = _tile(tile_rows, codes, pairs=True)
+        return radix16._sort_radix16(
+            (codes,) + rides, tr,
+            segments=radix16.adversarial_segments(codes.shape[0], tr))
+    return bitonic.sort_codes_stable_with(codes, *rides)
 
 
 def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
          variant: str = "onesweep", tile_rows: int | None = None
          ) -> torch.Tensor:
     """Key sort through the named engine; `tile_rows` overrides the tuning
-    row's radix tile ("ffx" keeps its fixed tile)."""
+    row's radix tile ("ffx" keeps its fixed tile, the network sizes its
+    own)."""
     _require_ported(variant)
-    codes = codec.encode_biased(keys)
-    if variant == "device_radix":
-        sc = rts.sort_codes_rts(codes, tile_rows=tile_rows)
-    else:
-        sc = ffx.sort_codes_ffx(codes)
+    sc = _sort_codes(codec.encode_biased(keys), variant, tile_rows)
     return codec.decode_biased(_flip(sc, order), codec.key_type_of(keys))
 
 
@@ -97,7 +120,7 @@ def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                     variant: str = "onesweep",
                     tile_rows: int | None = None):
     """Stable pair sort with a two-plane (lo, hi) 64-bit payload through
-    the named engine (3 planes)."""
+    the named engine (3 planes; the network adds its index plane)."""
     _require_ported(variant)
     sc, slo, shi = sort_codes_with_rides(
         codec.encode_biased(keys), (lo.view(torch.int32),

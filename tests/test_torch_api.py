@@ -55,7 +55,7 @@ def test_device_radix_object_matches_jax_object():
     want = gst.DeviceRadixSort(gst.SortConfig(backend=gst.Backend.PALLAS),
                                tuning=jtune).sort(jnp.asarray(keys))
     s = gstt.DeviceRadixSort(gstt.SortConfig(backend=PALLAS),
-                             tuning=_tuning(128))
+                             tuning=_tuning(128), device="cpu")
     got = s.sort(torch.from_numpy(keys))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # pairs through the object, against the JAX flat oracle
@@ -70,7 +70,8 @@ def test_device_radix_object_matches_jax_object():
 @pytest.mark.parametrize("cls", [gstt.DeviceRadixSort, gstt.FFXParallelSort])
 @pytest.mark.parametrize("mode", [gstt.Mode.KEYS_ONLY, gstt.Mode.PAIRS])
 def test_test_all_small_window(small_ffx_tile, cls, mode):
-    s = cls(gstt.SortConfig(mode=mode, backend=PALLAS), tuning=_tuning(2))
+    s = cls(gstt.SortConfig(mode=mode, backend=PALLAS), tuning=_tuning(2),
+            device="cpu")
     report = s.test_all(boundary_window=200, boundary_stride=37,
                         large_sizes=(3000,))
     assert report.all_passed, str(report)
@@ -84,7 +85,7 @@ def test_test_all_small_window(small_ffx_tile, cls, mode):
                                      gstt.Backend.AUTO])
 def test_super_test_18_configs(backend):
     report = gstt.super_test(gstt.DeviceRadixSort, sizes=(777,),
-                             backend=backend)
+                             backend=backend, device="cpu")
     assert (report.passed, report.failed) == (18, 0), str(report)
 
 
@@ -94,40 +95,78 @@ def test_validate_against_oracle(mode, key_type):
     s = gstt.DeviceRadixSort(gstt.SortConfig(
         mode=mode, key_type=key_type, order=gstt.Order.DESCENDING,
         payload_type=gstt.PayloadType.FLOAT32, backend=PALLAS),
-        tuning=_tuning(3))
+        tuning=_tuning(3), device="cpu")
     assert s.validate_against_oracle(5000, seed=11)
 
 
 def test_ffx_object_checks_and_sorts(small_ffx_tile):
     with pytest.raises(ValueError, match="u32 ascending"):
-        gstt.FFXParallelSort(gstt.SortConfig(key_type=gstt.KeyType.INT32))
+        gstt.FFXParallelSort(gstt.SortConfig(key_type=gstt.KeyType.INT32),
+                             device="cpu")
     with pytest.raises(ValueError, match="u32 ascending"):
-        gstt.FFXParallelSort(gstt.SortConfig(order=gstt.Order.DESCENDING))
-    s = gstt.FFXParallelSort(gstt.SortConfig(backend=PALLAS))
+        gstt.FFXParallelSort(gstt.SortConfig(order=gstt.Order.DESCENDING),
+                             device="cpu")
+    s = gstt.FFXParallelSort(gstt.SortConfig(backend=PALLAS), device="cpu")
     keys = torch.from_numpy(np.random.default_rng(4).integers(
         0, 2**32, 3000, dtype=np.uint32))
     np.testing.assert_array_equal(s.sort(keys).numpy(),
                                   np.sort(keys.numpy()))
 
 
-@pytest.mark.parametrize("cls", [gstt.OneSweep, gstt.ForwardSweep,
-                                 gstt.EmulatedDeadlocking])
-def test_unported_families(cls):
-    """The families whose PALLAS engines are not ported sort under AUTO and
-    XLA and raise under PALLAS."""
-    keys = torch.from_numpy(np.random.default_rng(5).integers(
-        0, 2**32, 999, dtype=np.uint32))
+@pytest.mark.parametrize("name", ["OneSweep", "ForwardSweep",
+                                  "EmulatedDeadlocking"])
+def test_unported_families(name):
+    """The three families whose PALLAS engines came last (the network, and
+    radix16 in adversarial segments) sort as the JAX sorters do under
+    PALLAS, at 128-row tiles, and as the flat sort under AUTO and XLA."""
+    cls, jcls = getattr(gstt, name), getattr(gst, name)
+    keys = np.random.default_rng(5).integers(0, 2**32, 20_000,
+                                             dtype=np.uint32)
+    jtune = dataclasses.replace(jconfig.get_tuning_parameters(),
+                                radix_tile_rows=128)
+    want = jcls(gst.SortConfig(backend=gst.Backend.PALLAS),
+                tuning=jtune).sort(jnp.asarray(keys))
+    s = cls(gstt.SortConfig(backend=PALLAS), tuning=_tuning(128),
+            device="cpu")
+    tk = torch.from_numpy(keys)
+    np.testing.assert_array_equal(s.sort(tk).numpy(), np.asarray(want))
+    # pairs (8-bit keys: long equal runs), against the JAX flat oracle
+    vals = np.arange(20_000, dtype=np.float32)
+    ok, ov = s.sort(torch.from_numpy(keys & 0xFF), torch.from_numpy(vals))
+    ek, ev = gst.sort_pairs(jnp.asarray(keys & 0xFF), jnp.asarray(vals),
+                            backend=gst.Backend.XLA)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ek))
+    np.testing.assert_array_equal(ov.numpy(), np.asarray(ev))
     for backend in (gstt.Backend.AUTO, gstt.Backend.XLA):
-        s = cls(gstt.SortConfig(backend=backend))
-        np.testing.assert_array_equal(s.sort(keys).numpy(),
-                                      np.sort(keys.numpy()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls(gstt.SortConfig(backend=PALLAS)).sort(keys)
+        s = cls(gstt.SortConfig(backend=backend), device="cpu")
+        np.testing.assert_array_equal(s.sort(tk).numpy(), np.sort(keys))
+
+
+def test_sorter_device_is_explicit(monkeypatch):
+    """A sorter never picks the CPU by itself: "cuda", the default, raises
+    where torch sees no card; "cpu" runs the kernels' plain versions."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (gstt.GPUSorterBase, gstt.OneSweep, gstt.FFXParallelSort):
+        with pytest.raises(RuntimeError, match="is_available"):
+            cls(gstt.SortConfig(backend=PALLAS))
+        with pytest.raises(RuntimeError, match="is_available"):
+            cls(gstt.SortConfig(backend=PALLAS), device="cuda")
+    with pytest.raises(RuntimeError, match="is_available"):
+        gstt.super_test(gstt.OneSweep, sizes=(10,))
+    s = gstt.OneSweep(gstt.SortConfig(backend=PALLAS, mode=gstt.Mode.PAIRS),
+                      device="cpu")
+    assert s.device == torch.device("cpu")
+    assert s.device_info.platform == "cpu"
+    assert s.tuning == gstt.get_tuning_parameters(s.device_info,
+                                                  gstt.Mode.PAIRS)
+    assert s.validate_sort(3000, seed=3)
+    assert s.validate_against_oracle(3000, seed=4)
 
 
 def test_make_sort_fn_and_timing():
     s = gstt.DeviceRadixSort(gstt.SortConfig(
-        backend=PALLAS, order=gstt.Order.DESCENDING), tuning=_tuning(1))
+        backend=PALLAS, order=gstt.Order.DESCENDING), tuning=_tuning(1),
+        device="cpu")
     keys = torch.from_numpy(np.random.default_rng(6).integers(
         0, 2**32, 4000, dtype=np.uint32))
     vals = torch.arange(4000, dtype=torch.int32)
@@ -163,7 +202,10 @@ def test_tuning_rows(mode):
     assert row.partition_size == jrow.partition_size
     h100 = dataclasses.replace(cpu, platform="cuda", generation="h100")
     hrow = gstt.get_tuning_parameters(h100, mode)
-    assert (hrow.radix_tile_rows, hrow.measured) == (32, False)
+    assert (hrow.radix_tile_rows, hrow.network_smem_bytes, hrow.measured) == (
+        32, 232448, False)
+    assert [hrow.network_tile_rows(k) for k in (1, 2, 3, 4)] == [
+        256, 128, 128, 64]
     gstt.set_tuning_override(mode, _tuning(7))
     try:
         assert gstt.get_tuning_parameters(h100, mode).radix_tile_rows == 7

@@ -1,5 +1,6 @@
 """Tests of gpusorting_tpu_torch that need an NVIDIA card: each hand-written
-kernel (relocate, tile_histogram4, exclusive_scan, downsweep) against its
+kernel (relocate, tile_histogram4, exclusive_scan, downsweep,
+global_histogram, binning_pass, local_stages, global_stage) against its
 plain version, their launch checks, and the engines and public entry
 points through the kernels against flat torch.sort.
 
@@ -16,8 +17,8 @@ import torch
 
 import gpusorting_tpu_torch as gstt
 from gpusorting_tpu_torch.core import codec, config, prng
-from gpusorting_tpu_torch.ops import (ffx, kernels, radix, relocate,
-                                      rangesweep as rs, rts)
+from gpusorting_tpu_torch.ops import (bitonic, ffx, kernels, radix, radix16,
+                                      relocate, rangesweep as rs, rts)
 
 pytestmark = pytest.mark.cuda
 
@@ -257,10 +258,13 @@ def test_public_pallas_route_on_card(cuda):
                 wk, wv = gstt.sort_pairs(keys, v, order=order,
                                          backend=gstt.Backend.XLA)
                 assert torch.equal(gv, wv)
-    s = gstt.DeviceRadixSort(gstt.SortConfig(backend=gstt.Backend.PALLAS))
-    assert s.validate_against_oracle(100_003, 5)
+    for cls in (gstt.DeviceRadixSort, gstt.OneSweep, gstt.ForwardSweep,
+                gstt.EmulatedDeadlocking):
+        s = cls(gstt.SortConfig(backend=gstt.Backend.PALLAS))
+        assert s.device.type == "cuda"
+        assert s.validate_against_oracle(100_003, 5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gstt.sort(keys, backend=gstt.Backend.PALLAS, variant="radix16")
+        gstt.sort(keys, backend=gstt.Backend.PALLAS, variant="splitsweep")
 
 
 @pytest.mark.parametrize("variant", radix.PORTED)
@@ -289,3 +293,159 @@ def test_h100_tuning_row(cuda):
     row = config.get_tuning_parameters(info)
     assert row.radix_tile_rows == 32 and row.measured is False
     assert rts.default_tile_rows(cuda) == 32
+    assert [bitonic.network_tile_rows(cuda, k) for k in (1, 2, 3, 4)] == [
+        256, 128, 128, 64]
+
+
+# ---- the radix16 kernels (global histogram, binning pass) and the network --
+
+# n = 1, 127, one 32-row tile, and more than 1000 tiles (a long lookback)
+_RADIX16_N = [1, 127, 32 * 128, 1100 * 32 * 128 + 77]
+
+
+@pytest.mark.parametrize("n", _RADIX16_N + [(1 << 22) + 3])
+@pytest.mark.parametrize("kind", ["rand", "distinct16", "alleq"])
+def test_global_histogram_kernel_matches_plain(cuda, kind, n):
+    x = _radix_codes(kind, n, n, cuda)
+    before = kernels.global_histogram.launches
+    for passes in (1, 4):
+        got = kernels.global_histogram(x, passes)
+        torch.cuda.synchronize()
+        assert got.shape == (passes, 256)
+        assert torch.equal(got, kernels.global_histogram_plain(x, passes))
+    assert kernels.global_histogram.launches == before + 2
+    assert int(got.sum()) == 4 * n
+
+
+@pytest.mark.parametrize("n", _RADIX16_N)
+@pytest.mark.parametrize("kind", ["rand", "distinct16", "alleq"])
+def test_binning_kernel_matches_plain(cuda, kind, n):
+    tile_rows = 32
+    codes = _radix_codes(kind, n, n + 1, cuda)
+    ride = torch.arange(n, dtype=torch.int32, device=cuda)
+    planes, _ = rts.pad_tiles((codes, ride, ride * 7), tile_rows)
+    bases, _ = radix16._bases_all_passes(planes[0].reshape(-1))
+    T = planes[0].shape[0] // tile_rows
+    for p in (0, 3, 7):
+        shift = 4 * p
+        for ops in (planes[:1], planes):
+            before = radix16.binning_pass.launches
+            got, cur = radix16.binning_pass(ops, bases[p], shift, tile_rows)
+            torch.cuda.synchronize()
+            assert radix16.binning_pass.launches == before + 1
+            want, wcur = radix16.binning_pass_plain(ops, bases[p], shift,
+                                                    tile_rows)
+            assert torch.equal(cur, wcur)
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+            # the same pass cut after tile 0 and before the last tile
+            out, c = [torch.empty_like(x) for x in ops], bases[p]
+            bounds = sorted({0, 1, max(T - 1, 0), T})
+            for a, b in zip(bounds[:-1], bounds[1:]):
+                _, c = radix16.binning_pass(
+                    [x[a * tile_rows:b * tile_rows] for x in ops], c, shift,
+                    tile_rows, out)
+            torch.cuda.synchronize()
+            assert torch.equal(c, wcur)
+            for g, w in zip(out, want):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tile_rows,tiles", [(1, 1), (8, 1100), (None, 4)])
+@pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (4, 2)])
+def test_local_stages_kernel_matches_plain(cuda, tile_rows, tiles, num_ops,
+                                           num_keys):
+    if tile_rows is None:     # the largest tile of an H100's 227 KB budget
+        tile_rows = config.TuningParameters(
+            1, network_smem_bytes=232448).network_tile_rows(num_ops)
+    tile_elems = tile_rows * 128
+    rows = tile_rows * tiles
+    g = torch.Generator().manual_seed(rows + num_ops)
+    planes = [torch.randint(-8, 8, (rows, 128), dtype=torch.int32,
+                            generator=g).to(cuda)]
+    planes += [torch.arange(rows * 128, dtype=torch.int32,
+                            device=cuda).view(rows, 128) * (q + 1)
+               for q in range(num_ops - 1)]
+    scheds = [bitonic.in_tile_schedule(tile_elems)]
+    if tiles > 1:
+        scheds.append(bitonic.tail_schedule(tile_elems, 4 * tile_elems))
+    for sched in scheds:
+        before = bitonic.local_stages.launches
+        got = bitonic.local_stages(planes, sched, num_keys, tile_rows)
+        torch.cuda.synchronize()
+        assert bitonic.local_stages.launches == before + 1
+        want = bitonic.local_stages_plain(planes, sched, num_keys, tile_rows)
+        for g_, w in zip(got, want):
+            assert torch.equal(g_, w)
+
+
+@pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (2, 2), (3, 2), (4, 2)])
+def test_global_stage_kernel_matches_plain(cuda, num_ops, num_keys):
+    tile_rows, rows = 8, 1 << 13               # N = 2^20, 1024 tiles
+    n = rows * 128
+    g = torch.Generator().manual_seed(num_ops)
+    planes = [torch.randint(-2**31, 2**31 - 1, (rows, 128),
+                            dtype=torch.int32, generator=g).to(cuda)
+              for _ in range(num_ops)]
+    for j, k in ((1024, 2048), (1 << 15, 1 << 17), (n // 2, n)):
+        want = bitonic.global_stage_plain([p.clone() for p in planes], j, k,
+                                          num_keys, tile_rows)
+        before = bitonic.global_stage.launches
+        got = bitonic.global_stage(planes, j, k, num_keys, tile_rows)
+        torch.cuda.synchronize()
+        assert bitonic.global_stage.launches == before + 1
+        assert got is planes                      # in place
+        for g_, w in zip(got, want):
+            assert torch.equal(g_, w)
+
+
+def test_new_wrappers_check_and_refused_launch_raises(cuda):
+    x = torch.zeros((512, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="1-D"):
+        kernels.global_histogram(x)
+    with pytest.raises(ValueError, match="passes"):
+        kernels.global_histogram(x.view(-1), 5)
+    with pytest.raises(ValueError, match="cursors"):
+        radix16.binning_pass([x], torch.zeros(15, dtype=torch.int32,
+                                              device=cuda), 0, 32)
+    with pytest.raises(ValueError, match="whole tiles"):
+        radix16.binning_pass([x], torch.zeros(16, dtype=torch.int32,
+                                              device=cuda), 0, 48)
+    with pytest.raises(ValueError, match="stage"):
+        bitonic.local_stages([x], bitonic.in_tile_schedule(2048), 1, 8)
+    with pytest.raises(ValueError, match="stage"):
+        bitonic.global_stage([x], 512, 1024, 1, 8)
+    # 512 rows of one plane need 256 KB of shared memory, more than a block
+    # may have: the launch is refused and the wrapper raises
+    before = bitonic.local_stages.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        bitonic.local_stages([x], bitonic.in_tile_schedule(512 * 128), 1,
+                             512)
+    assert bitonic.local_stages.launches == before
+
+
+@pytest.mark.parametrize("n", [1, 4097, 300_001])
+def test_network_and_radix16_engines_match_torch_sort(cuda, n):
+    k = codec.encode_biased(prng.hybrid_taus_bits(n, n, 3, device=cuda))
+    v = prng.hybrid_taus_bits(n, n + 1, device=cuda).view(torch.int32)
+    w = v ^ 0x5A5A5A5A
+    want = torch.sort(k, stable=True)
+    fns = (kernels.global_histogram, radix16.binning_pass,
+           bitonic.local_stages, bitonic.global_stage)
+    counts = [f.launches for f in fns]
+    assert torch.equal(bitonic.sort_codes(k), want.values)
+    sk, sv, sw = bitonic.sort_codes_stable_with(k, v, w)
+    assert torch.equal(sk, want.values)
+    assert torch.equal(sv, v[want.indices]) and torch.equal(
+        sw, w[want.indices])
+    assert torch.equal(radix16.sort_codes_radix16(k), want.values)
+    sk, sv = radix16.sort_pairs_radix16(k, v)
+    assert torch.equal(sv, v[want.indices])
+    segs = radix16.adversarial_segments(n, 8)
+    sk, sv, sw = radix16._sort_radix16((k, v, w), 8, segments=segs)
+    assert torch.equal(sk, want.values) and torch.equal(
+        sw, w[want.indices])
+    torch.cuda.synchronize()
+    grew = [f.launches > c for f, c in zip(fns, counts)]
+    # a network of at most one tile runs no global stage
+    assert grew == [True, True, True, n > 1 << 13]

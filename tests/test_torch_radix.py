@@ -31,7 +31,8 @@ from gpusorting_tpu.ops import radix16 as jradix16
 from gpusorting_tpu.ops import rts as jrts
 from gpusorting_tpu_torch import ops
 from gpusorting_tpu_torch.core import codec, config
-from gpusorting_tpu_torch.ops import ffx, flat_sort, kernels, radix, rts
+from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels, radix,
+                                      radix16, rts)
 
 TILE = 128
 
@@ -390,11 +391,11 @@ def _boom(*a, **k):
     raise AssertionError("another engine was reached")
 
 
-@pytest.mark.parametrize("variant", ["onesweep", "forward_sweep", "radix16",
-                                     "emulated_deadlocking", "splitsweep",
-                                     "mergesweep", "no_such_variant"])
+@pytest.mark.parametrize("variant", ["splitsweep", "mergesweep"])
 def test_unported_variants_raise_and_reach_no_engine(monkeypatch, variant):
     for mod, name in ((rts, "_sort_rts"), (ffx, "_sort_ffx"),
+                      (radix16, "_sort_radix16"),
+                      (bitonic, "sort_network_i32"),
                       (kernels, "tile_histogram4"), (rts, "downsweep"),
                       (flat_sort, "sort_keys"), (flat_sort, "sort_pairs"),
                       (flat_sort, "sort_pairs_wide"),
@@ -416,20 +417,44 @@ def test_unported_variants_raise_and_reach_no_engine(monkeypatch, variant):
             call()
 
 
-@pytest.mark.parametrize("variant,other", [("device_radix", (ffx,
-                                                              "_sort_ffx")),
-                                           ("ffx", (rts, "_sort_rts"))])
+# each variant's engine core, as the JAX router maps it (an unknown name
+# runs the network)
+_ENGINE = {"device_radix": (rts, "_sort_rts"), "ffx": (ffx, "_sort_ffx"),
+           "radix16": (radix16, "_sort_radix16"),
+           "emulated_deadlocking": (radix16, "_sort_radix16"),
+           "onesweep": (bitonic, "sort_network_i32"),
+           "forward_sweep": (bitonic, "sort_network_i32"),
+           "no_such_variant": (bitonic, "sort_network_i32")}
+
+
+@pytest.mark.parametrize("variant", list(_ENGINE))
 def test_ported_variants_reach_only_their_engine(monkeypatch, small_ffx_tile,
-                                                 variant, other):
-    monkeypatch.setattr(*other, _boom)
+                                                 variant):
+    for other in set(_ENGINE.values()) - {_ENGINE[variant]}:
+        monkeypatch.setattr(*other, _boom)
     for name in ("sort_keys", "sort_pairs", "sort_pairs_wide",
                  "sort_batched"):
         monkeypatch.setattr(flat_sort, name, _boom)
+    seen = []
+    if _ENGINE[variant][0] is radix16:
+        real = radix16._sort_radix16
+
+        def spy(operands, tile_rows, segments=None):
+            seen.append(segments)
+            return real(operands, tile_rows, segments)
+
+        monkeypatch.setattr(radix16, "_sort_radix16", spy)
     keys = _keys("uint32", 3000, seed=2)
     tk = torch.from_numpy(keys)
-    pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
+    pal = {"backend": gstt.Backend.PALLAS, "variant": variant,
+           "tile_rows": 2}
     np.testing.assert_array_equal(gstt.sort(tk, **pal).numpy(),
                                   np.sort(keys))
     perm = gstt.argsort(tk, **pal)
     np.testing.assert_array_equal(perm.numpy(),
                                   np.argsort(keys, kind="stable"))
+    if variant == "emulated_deadlocking":     # 12 tiles of 2 rows
+        assert seen == [radix16.adversarial_segments(3000, 2)] * 2 == [
+            (1, 4, 6, 11)] * 2
+    elif variant == "radix16":
+        assert seen == [None, None]

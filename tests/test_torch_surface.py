@@ -196,10 +196,10 @@ def test_public_errors():
     with pytest.raises(TypeError):
         gstt.sort_pairs_wide(k, k.view(torch.int32).long(),
                              k.view(torch.int32).long())
-    for call in (lambda: gstt.sort(k, backend=gstt.Backend.PALLAS),
-                 lambda: gstt.argsort(k, backend=gstt.Backend.PALLAS),
-                 lambda: gstt.sort_batched(k.view(2, 4),
-                                           backend=gstt.Backend.PALLAS)):
+    pal = {"backend": gstt.Backend.PALLAS, "variant": "splitsweep"}
+    for call in (lambda: gstt.sort(k, **pal),
+                 lambda: gstt.argsort(k, **pal),
+                 lambda: gstt.sort_batched(k.view(2, 4), **pal)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
