@@ -58,7 +58,25 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      OneSweep, ForwardSweep and EmulatedDeadlocking;
   9. times: the new variants end to end beside device_radix and flat
      torch.sort, and each new kernel beside its bound, its plain version
-     and the one torch call that computes the same function, if any.
+     and the one torch call that computes the same function, if any;
+ 10. compact and expand (csrc/stitch.cu) against their plain versions at
+     n = 2^28 on 1, 2 and 3 planes, bit for bit, under masks with none, all,
+     half and 1/64 set and an interval mask of random segments; expand
+     also from a stream shorter than the mask;
+ 11. the segmented sort through the public entry points, each output held
+     bit for bit against flat_sort.segmented_sort_pairs (the composite
+     oracle), pairs also against the payload == key oracle: (a) the
+     reference's matrix, 2^22 keys in random segments of at most 2^2 ..
+     2^18 (u32 pairs, a float64 payload as lo/hi planes, i32 and f32 keys
+     with NaN and +-0; bits_to_sort 4/8/16/24 at 2^10); (b) fixed lengths
+     32, 4096, 2^18; (c) a length-class split at 2^26 (1 compact and 1
+     expand a call); (d) a multi-class plan at 2^26 (3 and 3); (e)
+     strategy="packed", a SplitSorter and a make_segsort_fn;
+ 12. times: each layout of 11(a)-(d) end to end with and without a
+     prebuilt plan beside the oracle; compact and expand at 2^28 beside
+     their bounds, plain versions and the torch calls computing the same
+     function; and each stitch call of layouts (c) and (d) at its shape,
+     each held bit for bit against its plain version on the same operands.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -103,11 +121,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    import numpy as np
+
     import gpusorting_tpu_torch as gstt
     from gpusorting_tpu_torch.core import codec, prng
-    from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, kernels,
-                                          radix16, relocate, rangesweep as rs,
-                                          rts)
+    from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, flat_sort,
+                                          kernels, radix16, relocate,
+                                          rangesweep as rs, rts, stitch)
+    from gpusorting_tpu_torch.segsort import splitsort
     from gpusorting_tpu_torch.utils import timing, validate
 
     dev = torch.device("cuda", 0)
@@ -136,7 +157,7 @@ def main() -> int:
     # ---- phase 0: build every kernel, one nvcc per source, all at once ----
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
-               bitonic.SOURCE)
+               bitonic.SOURCE, stitch.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -924,6 +945,363 @@ def main() -> int:
     del x, u, ride, planes3, bases, net1, gplanes
     free()
 
+    # ---- phase 10: compact and expand against their plain versions -------
+    stitch_err = {"compact": 0, "expand": 0}
+
+    def check_stitch(kname, got, want, what):
+        for g, w in zip(got, want):
+            if g.numel():
+                err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                stitch_err[kname] = max(stitch_err[kname], err)
+            _require(torch.equal(g, w), f"{kname} != plain on {what}")
+
+    def host_starts(offs, total):
+        starts = offs.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+        return starts, np.diff(np.append(starts, total))
+
+    def segment_mask(n, max_len, seed):
+        """Every other segment of make_random_segments, as an interval
+        mask (the segmented sort's own `_interval_mask`)."""
+        starts, lens = host_starts(
+            prng.make_random_segments(n, max_len, seed, device=dev)[0], n)
+        return splitsort._interval_mask(starts[1::2], lens[1::2], n, dev)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    masks = {"none": torch.zeros(N, dtype=torch.bool, device=dev),
+             "all": torch.ones(N, dtype=torch.bool, device=dev),
+             "half": torch.rand(N, generator=gen, device=dev) < 0.5,
+             "1/64": torch.rand(N, generator=gen, device=dev) < 1 / 64,
+             "segments": segment_mask(N, 1 << 10, SEED + 20)}
+    splanes = [prng.hybrid_taus_bits(N, SEED + 21 + j, device=dev)
+               .view(torch.int32) for j in range(3)]
+    for mname, mask in masks.items():
+        count = int(mask.sum())
+        for ops in (splanes[:1], splanes[:2], splanes):
+            packed, cnt = stitch.compact_ops(ops, mask)
+            wpacked, wcnt = stitch.compact_plain(ops, mask)
+            _require(int(cnt) == int(wcnt) == count,
+                     f"compact count {int(cnt)} != {count} on {mname}")
+            check_stitch("compact", [p[:count] for p in packed],
+                         [w[:count] for w in wpacked],
+                         f"{mname}, {len(ops)} planes")
+            del packed, wpacked
+            for length in (N, count // 2):
+                srcs = [p[:length] for p in ops]
+                check_stitch("expand", stitch.expand_ops(srcs, mask),
+                             stitch.expand_plain(srcs, mask),
+                             f"{mname}, {len(ops)} planes, stream {length}")
+            torch.cuda.synchronize()
+            emit(phase="kernel_vs_plain", kernel="compact+expand",
+                 mask=mname, planes=len(ops), n=N, count=count,
+                 expand_stream_lengths=[N, count // 2], bit_exact=True)
+            free()
+    del masks
+    free()
+
+    # ---- phase 11: the segmented sort through the public entry points ----
+    tot_a = 1 << 22
+    tot_c = 1 << 26
+    M32 = 0xFFFFFFFF
+    stitch_fns = (stitch.compact_ops, stitch.expand_ops)
+
+    def stitch_counts():
+        return tuple(f.launches for f in stitch_fns)
+
+    def route_of(plan, bits_to_sort=32, has_payload=True):
+        if plan.fixed_length is not None and plan.fixed_length > 1:
+            return "fixed"
+        wp = plan.window_plan(bits_to_sort, has_payload) or {}
+        for r in ("split", "classes"):
+            if r in wp:
+                return r
+        if "ml" in wp:
+            mode = splitsort._pick_window_mode(wp["ml"], wp["sid_bits"],
+                                               bits_to_sort, has_payload,
+                                               plan.info)
+            if mode is not None:
+                return f"window_{mode}"
+        return "composite"
+
+    def seg_call(label, fn, want_stitch):
+        before = stitch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(stitch_counts(), before))
+        _require(want_stitch is None or delta == want_stitch,
+                 f"{label}: compact+expand launches {delta} != "
+                 f"{want_stitch}")
+        return out, delta
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+    def check_pairs(label, offs, S, total, keys, vals, want_stitch=None,
+                    bits_to_sort=32, **kw):
+        """u32 pairs with payload == key bits, against the composite oracle
+        and the payload == key oracle."""
+        (gk, gv), delta = seg_call(label, lambda: gstt.split_sort_pairs(
+            offs, keys, vals, S, total, bits_to_sort, **kw), want_stitch)
+        wk, wv = flat_sort.segmented_sort_pairs(offs, keys, vals, total)
+        _require(same(gk, wk) and same(gv, wv),
+                 f"{label} != composite oracle")
+        _require(torch.equal(bits(gv), bits(gk)) and int(
+            validate.count_segmented_violations(offs, gk)) == 0,
+                 f"{label}: payload == key oracle violated")
+        return delta
+
+    def check_keys(label, offs, S, total, keys, want_stitch=None, **kw):
+        gk, delta = seg_call(label, lambda: gstt.split_sort_keys(
+            offs, keys, S, **kw), want_stitch)
+        _require(same(gk, flat_sort.segmented_sort_pairs(offs, keys, None,
+                                                         total)),
+                 f"{label} != composite oracle")
+        return delta
+
+    def check_wide(label, offs, S, total, keys):
+        """A float64 payload holding the key's value, through
+        split_sort_pairs_wide as lo/hi planes."""
+        v64 = (bits(keys).to(torch.int64) & M32).to(torch.float64)
+        lo, hi = codec.split_wide(v64.view(torch.int64))
+        (gk, glo, ghi), delta = seg_call(
+            label, lambda: gstt.split_sort_pairs_wide(offs, keys, lo, hi, S,
+                                                      total), None)
+        wk, wv = flat_sort.segmented_sort_pairs(offs, keys, v64, total)
+        got = codec.join_wide(glo, ghi)
+        _require(same(gk, wk) and torch.equal(got, wv.view(torch.int64)),
+                 f"{label} != composite oracle")
+        _require(torch.equal(got.view(torch.float64).to(torch.int64),
+                             bits(gk).to(torch.int64) & M32),
+                 f"{label}: payload == key oracle violated")
+        return delta
+
+    def special_floats(k):
+        pos = torch.arange(0, k.numel(), 997, device=dev)
+        k.view(torch.int32)[pos] = specials[pos % specials.numel()]
+        return k
+
+    def offsets_of(lens):
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+        return (codec.wrap_int32(torch.from_numpy(starts)).to(dev),
+                len(lens), int(np.sum(lens)))
+
+    def layout_lens(total, longs, small_max, seed):
+        """Long segments (count, lo, hi), the rest filled with segments of
+        1..small_max, shuffled."""
+        rng = np.random.default_rng(seed)
+        big = np.concatenate([rng.integers(lo, hi + 1, c)
+                              for c, lo, hi in longs])
+        rem = total - int(big.sum())
+        small = rng.integers(1, small_max + 1, 2 * rem // small_max + 64)
+        ends = np.cumsum(small)
+        k = int(np.searchsorted(ends, rem))
+        small = small[:k + 1]
+        small[k] -= int(ends[k]) - rem
+        return rng.permutation(np.concatenate([big, small]))
+
+    for f in stitch_fns:
+        f.launches = 0
+    seg_runs = []
+    timing_cases = []     # (layout, offs, S, total, keys, vals) per layout
+    for i, ml in enumerate(range(2, 20, 2)):
+        offs, S = prng.make_random_segments(tot_a, 1 << ml, SEED + 30 + i,
+                                            device=dev)
+        keys, vals = prng.make_test_pairs(tot_a, SEED + 40 + i, torch.uint32,
+                                          torch.uint32,
+                                          gstt.EntropyPreset.E033, device=dev)
+        route = route_of(gstt.make_segsort_plan(offs, tot_a, S))
+        label = f"a_max2^{ml}"
+        d = check_pairs(f"{label} pairs_u32", offs, S, tot_a, keys, vals)
+        check_wide(f"{label} pairs_f64_wide", offs, S, tot_a, keys)
+        ikeys = prng.make_test_keys(tot_a, SEED + 50 + i, torch.int32,
+                                    gstt.EntropyPreset.E054, device=dev)
+        check_keys(f"{label} keys_i32", offs, S, tot_a, ikeys)
+        fkeys = special_floats(prng.make_test_keys(
+            tot_a, SEED + 60 + i, torch.float32, device=dev))
+        check_keys(f"{label} keys_f32", offs, S, tot_a, fkeys)
+        if ml == 10:
+            for b in (4, 8, 16, 24):
+                mk = prng.make_masked_random_values(tot_a, b, SEED + 70 + b,
+                                                    device=dev)
+                check_pairs(f"{label} bits_to_sort={b}", offs, S, tot_a, mk,
+                            mk.clone(), bits_to_sort=b)
+        seg_runs.append({"layout": label, "segments": S, "route": route,
+                         "stitch_launches_pairs": d})
+        timing_cases.append((label, route, offs, S, tot_a, keys, vals))
+        del ikeys, fkeys
+    for seg_len in (32, 4096, 1 << 18):
+        offs, S = prng.make_fixed_segments(tot_a, seg_len, device=dev)
+        keys, vals = prng.make_test_pairs(tot_a, SEED + 80 + seg_len,
+                                          torch.uint32, torch.uint32,
+                                          gstt.EntropyPreset.E033, device=dev)
+        label = f"b_fixed{seg_len}"
+        route = route_of(gstt.make_segsort_plan(offs, tot_a, S))
+        _require(route == "fixed", f"{label} planned {route}")
+        check_pairs(f"{label} pairs_u32", offs, S, tot_a, keys, vals, (0, 0))
+        check_keys(f"{label} keys_u32", offs, S, tot_a, keys, (0, 0))
+        seg_runs.append({"layout": label, "segments": S, "route": route})
+        timing_cases.append((label, route, offs, S, tot_a, keys, vals))
+    for label, longs, small_max, want, calls in (
+            ("c_split", [(14, 1 << 18, 1 << 19)], 64, "split", 1),
+            ("d_classes", [(1100, 8193, 16384), (72, 1 << 18, 1 << 18)], 32,
+             "classes", 3)):
+        offs, S, total = offsets_of(layout_lens(tot_c, longs, small_max,
+                                                SEED + calls))
+        plan = gstt.make_segsort_plan(offs, total, S)
+        wp = plan.window_plan(32, True)
+        _require(want in wp, f"{label}: plan {sorted(wp)} lacks {want!r}")
+        if want == "classes":
+            cp = wp["classes"]
+            _require([c["B"] for c in cp["padded"]] == [16384]
+                     and cp["tail"] is not None,
+                     f"{label}: padded {[c['B'] for c in cp['padded']]}, "
+                     f"tail {cp['tail'] is not None}")
+        keys, vals = prng.make_test_pairs(total, SEED + 90 + calls,
+                                          torch.uint32, torch.uint32,
+                                          gstt.EntropyPreset.E033, device=dev)
+        starts, lens = host_starts(offs, total)
+        share = {str(b): float(lens[lens <= b].sum() / total)
+                 for b in (32, 64, 16384, 131072)}
+        check_pairs(f"{label} pairs_u32", offs, S, total, keys, vals,
+                    (calls, calls))
+        check_pairs(f"{label} pairs_u32 plan", offs, S, total, keys, vals,
+                    (calls, calls), plan=plan)
+        check_keys(f"{label} keys_u32", offs, S, total, keys,
+                   (calls, calls))
+        seg_runs.append({"layout": label, "segments": S, "total": total,
+                         "route": want, "share_at_or_below": share,
+                         "stitch_launches_per_call": [calls, calls]})
+        timing_cases.append((label, want, offs, S, total, keys, vals))
+    offs, S = prng.make_random_segments(tot_a, 32, SEED + 100, device=dev)
+    keys, vals = prng.make_test_pairs(tot_a, SEED + 101, torch.uint32,
+                                      torch.uint32, device=dev)
+    check_pairs("e packed", offs, S, tot_a, keys, vals, strategy="packed")
+    sorter = gstt.SplitSorter(tot_a, S)
+    (gk, gv), _ = seg_call("e SplitSorter", lambda: sorter.sort_pairs(
+        offs, keys, vals), None)
+    wk, wv = flat_sort.segmented_sort_pairs(offs, keys, vals, tot_a)
+    _require(same(gk, wk) and same(gv, wv), "SplitSorter != oracle")
+    sorter.close()
+    fn = gstt.make_segsort_fn(gstt.make_segsort_plan(offs, tot_a, S))
+    (gk, gv), _ = seg_call("e make_segsort_fn", lambda: fn(offs, keys, vals),
+                           None)
+    _require(same(gk, wk) and same(gv, wv), "make_segsort_fn != oracle")
+    del keys, vals, gk, gv, wk, wv
+    free()
+    seg_launches = dict(zip(("compact", "expand"), stitch_counts()))
+    _require(all(v > 0 for v in seg_launches.values()),
+             f"the segmented sort missed a stitch kernel: {seg_launches}")
+    emit(phase="segsort_path", launches=seg_launches, layouts=seg_runs,
+         bit_exact=True)
+
+    # ---- phase 12: times of the segmented sort and of each stitch kernel --
+    for label, route, offs, S, total, keys, vals in timing_cases:
+        plan = gstt.make_segsort_plan(offs, total, S)
+        emit(phase="segsort_end_to_end", layout=label, route=route,
+             total=total, segments=S,
+             plan_ms=median_ms(lambda: gstt.split_sort_pairs(
+                 offs, keys, vals, S, total, plan=plan), iters=3),
+             no_plan_ms=median_ms(lambda: gstt.split_sort_pairs(
+                 offs, keys, vals, S, total), iters=3),
+             oracle_ms=median_ms(lambda: flat_sort.segmented_sort_pairs(
+                 offs, keys, vals, total), iters=3),
+             plan_build_ms=median_ms(lambda: gstt.make_segsort_plan(
+                 offs, total, S).window_plan(32, True), iters=3))
+    free()
+
+    half = torch.rand(N, generator=gen, device=dev) < 0.5
+    count = int(half.sum())
+    stitch_times = {}
+    for n_planes in (1, 3):
+        ops = splanes[:n_planes]
+        packed, _ = stitch.compact_ops(ops, half)
+        srcs = [p[:count] for p in packed]
+        stitch_times[f"compact_{n_planes}"] = dict(
+            ms=median_ms(lambda: stitch.compact_ops(ops, half)),
+            plain_ms=median_ms(lambda: stitch.compact_plain(ops, half),
+                               iters=3),
+            library_ms=median_ms(lambda: [torch.masked_select(p, half)
+                                          for p in ops]),
+            bound_ms=(N * (1 + 4 * n_planes) + count * 4 * n_planes)
+            / bw * 1e3,
+            library="torch.masked_select, one call per plane")
+        stitch_times[f"expand_{n_planes}"] = dict(
+            ms=median_ms(lambda: stitch.expand_ops(srcs, half)),
+            plain_ms=median_ms(lambda: stitch.expand_plain(srcs, half),
+                               iters=3),
+            library_ms=median_ms(lambda: [
+                torch.zeros(N, dtype=torch.int32, device=dev)
+                .masked_scatter_(half, s) for s in srcs]),
+            bound_ms=(N + count * 4 * n_planes + N * 4 * n_planes)
+            / bw * 1e3,
+            library="torch.zeros(n).masked_scatter_(mask, src), one call "
+                    "per plane")
+        del packed, srcs
+    for kname, rec in stitch_times.items():
+        emit(phase="per_kernel", kernel=kname, n=N, count=count,
+             bound_by="bytes", **rec)
+    del half, splanes
+    free()
+
+    # each stitch call of one (c) and one (d) pairs call, at its shape: one
+    # sort captures the operands and answers each call with the plain
+    # version, so that no launch counter moves; each kernel is then held bit
+    # for bit against that plain answer on the same operands (the 2-plane
+    # launches of a pairs call, on its padded-row masks) and timed
+    real = {"compact": stitch.compact_ops, "expand": stitch.expand_ops}
+    plain = {"compact": stitch.compact_plain, "expand": stitch.expand_plain}
+    for label, route, offs, S, total, keys, vals in timing_cases[-2:]:
+        calls = []
+
+        def recorder(kname):
+            def rec(planes, mask):
+                want = plain[kname](tuple(planes), mask)
+                calls.append((kname, tuple(planes), mask, want))
+                return want
+            return rec
+        stitch.compact_ops = recorder("compact")
+        stitch.expand_ops = recorder("expand")
+        try:
+            gstt.split_sort_pairs(offs, keys, vals, S, total)
+        finally:
+            stitch.compact_ops, stitch.expand_ops = (real["compact"],
+                                                     real["expand"])
+        shapes = []
+        for kname, planes, mask, want in calls:
+            what = f"{label}, {len(planes)} planes, n {mask.numel()}"
+            got = real[kname](planes, mask)
+            if kname == "compact":
+                (packed, cnt), (wpacked, wcnt) = got, want
+                count = int(wcnt)
+                _require(int(cnt) == count,
+                         f"compact count {int(cnt)} != {count} on {what}")
+                check_stitch("compact", [p[:count] for p in packed],
+                             [w[:count] for w in wpacked], what)
+            else:
+                check_stitch("expand", got, want, what)
+            del got
+            shapes.append({
+                "kernel": kname, "n": mask.numel(), "planes": len(planes),
+                "count": int(mask.sum()),
+                "plane_lengths": sorted({p.numel() for p in planes}),
+                "ms": median_ms(lambda: real[kname](planes, mask))})
+        emit(phase="stitch_at_layout", layout=label, route=route,
+             total=total, calls=shapes, bit_exact=True,
+             sum_ms=sum(c["ms"] for c in shapes))
+        del calls, shapes
+    del timing_cases
+    free()
+
+    def stitch_row(kname, replaces):
+        t = stitch_times[f"{kname}_1"]
+        return {"name": kname, "route": "cuda",
+                "source": "gpusorting_tpu_torch/csrc/stitch.cu",
+                "replaces": replaces,
+                "launches": seg_launches[kname],
+                "max_abs_err": stitch_err[kname],
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": "bytes",
+                "library_ms": t["library_ms"], "card": card}
+
     def new_row(name, kname, source, replaces, times):
         return {"name": name, "route": "cuda",
                 "source": f"gpusorting_tpu_torch/csrc/{source}",
@@ -979,7 +1357,10 @@ def main() -> int:
                 new_times["local_stages_in_tile"]),
         new_row("global_stage", "global_stage", "bitonic.cu",
                 "gpusorting_tpu/ops/bitonic.py:138",
-                new_times["global_stage"])]}), flush=True)
+                new_times["global_stage"]),
+        stitch_row("compact", "gpusorting_tpu/ops/stitch.py:85"),
+        stitch_row("expand", "gpusorting_tpu/ops/stitch.py:324")]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

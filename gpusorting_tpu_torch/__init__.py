@@ -7,7 +7,8 @@ the JAX package.  Entry points compute on the device of the tensor given;
 every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
 kernel (so far: the range-exchange relocate; the reduce-then-scan
 Upsweep, scan and downsweep; radix16's global histogram and binning pass;
-the sorting network's in-tile and cross-tile stages, `csrc/`).
+the sorting network's in-tile and cross-tile stages; the segmented sort's
+compact and expand, `csrc/`).
 
 Quick start:
     import gpusorting_tpu_torch as gstt
@@ -15,6 +16,8 @@ Quick start:
     k, v = gstt.sort_pairs(keys_cuda, values)  # stable pair sort
     out = gstt.sort(keys_cuda, backend=gstt.Backend.PALLAS,
                     variant="device_radix")    # the radix engines
+    k, v = gstt.split_sort_pairs(offsets, keys_cuda, values, seg_count)
+                                               # the segmented sort
 """
 
 from .core.config import (
@@ -50,6 +53,17 @@ from .api import (
     super_test,
 )
 from .ops import argsort, sort, sort_batched, sort_pairs, sort_pairs_wide
+from .segsort.splitsort import (
+    SegSortPlan,
+    SplitSorter,
+    make_segsort_fn,
+    make_segsort_plan,
+    split_sort_allocate_temp_memory,
+    split_sort_free_temp_memory,
+    split_sort_keys,
+    split_sort_pairs,
+    split_sort_pairs_wide,
+)
 
 __version__ = "0.1.0"
 
@@ -68,7 +82,9 @@ __all__ = [
     "Order",
     "PayloadType",
     "RoutingParameters",
+    "SegSortPlan",
     "SortConfig",
+    "SplitSorter",
     "TestReport",
     "TuningParameters",
     "argsort",
@@ -78,6 +94,8 @@ __all__ = [
     "get_device_info",
     "get_routing_parameters",
     "get_tuning_parameters",
+    "make_segsort_fn",
+    "make_segsort_plan",
     "routing_from_jax_fields",
     "set_routing_override",
     "set_tuning_override",
@@ -85,6 +103,11 @@ __all__ = [
     "sort_batched",
     "sort_pairs",
     "sort_pairs_wide",
+    "split_sort_allocate_temp_memory",
+    "split_sort_free_temp_memory",
+    "split_sort_keys",
+    "split_sort_pairs",
+    "split_sort_pairs_wide",
     "super_test",
     "tuning_from_jax_fields",
 ]

@@ -266,11 +266,13 @@ def tuning_from_jax_fields(d: dict) -> TuningParameters:
 @dataclasses.dataclass(frozen=True)
 class RoutingParameters:
     """Routing thresholds and chunk lengths of the range-exchange engine,
-    and the FFX engine's fixed tile.
+    the FFX engine's fixed tile, and the segmented sort's window caps and
+    class bounds.
 
-    The JAX package's row carries more fields (segmented-sort windows,
-    mapped-row crossovers, mergesweep chunks); they belong to modules not
-    yet ported and are dropped by `routing_from_jax_fields`.
+    The JAX package's row carries two more kinds of field, which
+    `routing_from_jax_fields` drops: the mapped-row crossovers
+    (`map_rows_min_*`, a TPU `lax.map` route; the port sorts rows in one
+    batched `torch.sort`) and the mergesweep chunk (not ported yet).
 
       rangesweep_min            — smallest keys-only n AUTO sends to
                                   rangesweep; None disables the route.
@@ -284,6 +286,22 @@ class RoutingParameters:
                                   FFX is fixed-tuning by definition
                                   (FFXParallelSort.cpp:28-43): recorded
                                   here to be auditable, not to vary.
+      window_max_keys/fused/pairs — largest max segment length the
+                                  segmented sort's two-window ladder serves
+                                  in its keys-only (`keys2`), bounded-bits
+                                  (`fused`) and 32-bit pairs (`stable3`)
+                                  modes; beyond it the workload splits by
+                                  length class or takes the composite.
+      segsort_bulk_max          — multi-class dispatch: largest length
+                                  class the bulk window ladder sorts in
+                                  place.
+      segsort_padded_max        — multi-class dispatch: largest length
+                                  class extracted and sorted as padded rows;
+                                  longer segments go to the dense composite
+                                  tail.
+      segsort_extract_max_frac  — multi-class dispatch runs only when the
+                                  extracted share of the elements is at most
+                                  this.
       measured                  — True only for a row measured on its card.
     """
 
@@ -297,6 +315,12 @@ class RoutingParameters:
     rangesweep_min_index: int | None = None
     rangesweep_seg_elems_index: int = 1 << 21
     ffx_tile_rows: int = 256
+    window_max_keys: int = 32768
+    window_max_fused: int = 32768
+    window_max_pairs: int = 16384
+    segsort_bulk_max: int = 4096
+    segsort_padded_max: int = 131072
+    segsort_extract_max_frac: float = 0.5
     measured: bool = False
 
 
@@ -310,6 +334,14 @@ _ROUTING_TABLE = {
     # lengths keep the defaults (2^21: K=128 at 2^28, so the hierarchical
     # cuts run).  Only the SXM card has run it; PCIe and NVL cards take
     # the same row unmeasured.
+    # The segmented sort's window caps (window_max_*) and class bounds
+    # (segsort_*) are the dataclass defaults, NOT MEASURED on the card.
+    # Every route gives the same bits, so each field decides only which
+    # mechanism runs, and how fast: a larger window cap keeps more
+    # workloads on the in-place window sorts, whose batched row sorts slow
+    # as the window grows; the bulk and padded bounds trade sorting in
+    # place against extracting a class (a compact and an expand each way);
+    # the extraction share gates when that copying pays.
     "h100": RoutingParameters(rangesweep_min=1 << 28,
                               rangesweep_min_pairs=1 << 28,
                               rangesweep_min_pairs_wide=1 << 28,
@@ -347,7 +379,8 @@ def get_routing_parameters(info: DeviceInfo | None = None
 
 def routing_from_jax_fields(d: dict) -> RoutingParameters:
     """The port's row from a JAX `RoutingParameters` rendered by
-    `dataclasses.asdict`; fields of modules not yet ported are dropped."""
+    `dataclasses.asdict`; the TPU-only `map_rows_min_*` fields and those of
+    modules not yet ported are dropped."""
     names = {f.name for f in dataclasses.fields(RoutingParameters)}
     return RoutingParameters(**{k: v for k, v in d.items() if k in names})
 

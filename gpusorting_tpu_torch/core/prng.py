@@ -17,7 +17,10 @@ int64 temporaries.
 
 The functions here create data: they take `device=` (default "cuda") and
 raise where that device is a CUDA card torch cannot see.  The segmented
-fixtures come with the segmented sort.
+fixtures (prng.py:115-161 of the JAX package) return offsets as an int32
+tensor on the device with the segment count as an int; the segment
+lengths come from the same numpy draws as JAX's, so the offsets are
+bit-exact with its.
 """
 
 from __future__ import annotations
@@ -129,3 +132,77 @@ def make_descending_keys(n: int, dtype: torch.dtype = torch.uint32,
     dev = require_device(device)
     t = (n - 1 - torch.arange(n, dtype=torch.int64, device=dev)) & _M32
     return codec.wrap_int32(t).view(dtype)
+
+
+# ---- segmented-sort fixtures (UtilityKernels.cuh:121-400) -----------------
+
+
+def _offsets(starts: np.ndarray, device: torch.device) -> torch.Tensor:
+    """int64 segment starts -> the int32 offsets tensor (u32 bits)."""
+    return codec.wrap_int32(torch.from_numpy(starts.astype(np.int64))).to(
+        device)
+
+
+def make_fixed_segments(total_length: int, seg_length: int,
+                        device: torch.device | str = "cuda"):
+    """Equal-length segments covering total_length (UtilityKernels.cuh
+    :121-135): (offsets, seg_count), offsets the exclusive-prefix starts."""
+    if seg_length <= 0:
+        raise ValueError("seg_length must be positive")
+    dev = require_device(device)
+    seg_count = max(1, total_length // seg_length)
+    starts = np.arange(seg_count, dtype=np.int64) * seg_length
+    return _offsets(starts, dev), seg_count
+
+
+def make_random_segments(total_length: int, max_seg_length: int, seed: int,
+                         device: torch.device | str = "cuda"):
+    """Random segment lengths in [1, max_seg_length] under a global budget
+    (UtilityKernels.cuh:340-400), the last one cut to fill it exactly.
+
+    The JAX package draws one `randint` at a time from
+    `RandomState(uint32(seed))`; a draw of many at once gives the same
+    sequence, so the lengths are drawn in batches and cut where the budget
+    fills (draws past that point are discarded with the generator)."""
+    dev = require_device(device)
+    rng = np.random.RandomState(np.uint32(seed))
+    lens, used = [], 0
+    while used < total_length:
+        batch = 2 * (total_length - used) // (max_seg_length + 1) + 64
+        drawn = rng.randint(1, max_seg_length + 1, size=batch)
+        ends = used + np.cumsum(drawn)
+        k = int(np.searchsorted(ends, total_length, side="left"))
+        if k < batch:                       # the budget fills at draw k
+            drawn = drawn[:k + 1].copy()
+            drawn[k] -= int(ends[k]) - total_length
+        lens.append(drawn)
+        used += int(drawn.sum())
+    lens = np.concatenate(lens) if lens else np.zeros(0, np.int64)
+    starts = np.zeros(len(lens), dtype=np.int64)
+    starts[1:] = np.cumsum(lens[:-1])
+    return _offsets(starts & _M32, dev), len(lens)
+
+
+def make_masked_random_values(n: int, bits_to_sort: int, seed: int,
+                              device: torch.device | str = "cuda"
+                              ) -> torch.Tensor:
+    """Random u32 keys masked to bits_to_sort bits (UtilityKernels.cuh
+    :170-248), torch.uint32."""
+    bits = hybrid_taus_bits(n, seed, device=device)
+    if bits_to_sort >= 32:
+        return bits
+    return (bits.view(torch.int32) & ((1 << bits_to_sort) - 1)).view(
+        torch.uint32)
+
+
+def make_unique_shuffled(n: int, seed: int,
+                         device: torch.device | str = "cuda"
+                         ) -> torch.Tensor:
+    """A shuffle of 0..n-1 (UtilityKernels.cuh:251-324 unique-value
+    fixtures), torch.uint32.  `torch.randperm` under a CPU generator seeded
+    from `seed`: the same on every device, but not the JAX package's
+    `jax.random.permutation` order."""
+    dev = require_device(device)
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n, generator=g).to(torch.int32)
+    return perm.to(dev).view(torch.uint32)

@@ -26,9 +26,10 @@
 // 30-bit count (so the range holds fewer than 2^30 elements); it then walks
 // back over its predecessors' words, summing aggregates, until it meets an
 // inclusive prefix (tile 0 publishes its count as one at once), and
-// publishes its own inclusive prefix.  The status words and the tile
-// counter are zeroed before every launch.  The tile's stable scatter is
-// `gst::scatter_tile` (radix_common.cuh), shared with downsweep.cu.
+// publishes its own inclusive prefix (`gst::chained_exclusive`, one call
+// per digit).  The status words and the tile counter are zeroed before
+// every launch.  The tile's stable scatter is `gst::scatter_tile`
+// (radix_common.cuh), shared with downsweep.cu.
 //
 // Bound: memory.  Each plane is read once and written once, 8 bytes per
 // element per plane (the status words are 64 bytes a tile): at n = 2^28,
@@ -48,13 +49,6 @@ using gst::Planes;
 constexpr int kThreads = gst::kScatterThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kDigits = 16;
-constexpr unsigned kFlagAggregate = 1u << 30;
-constexpr unsigned kFlagInclusive = 2u << 30;
-constexpr unsigned kCountMask = kFlagAggregate - 1;
-
-__device__ __forceinline__ unsigned load_status(const unsigned* p) {
-  return *reinterpret_cast<const volatile unsigned*>(p);
-}
 
 template <int NOPS>
 __global__ void __launch_bounds__(kThreads)
@@ -86,22 +80,8 @@ binning(Planes planes, const int* __restrict__ cursors_in,
     unsigned count = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) count += bins[w][tid];
-    unsigned* mine = status + (long long)t * kDigits + tid;
-    unsigned exclusive = 0;
-    if (t == 0) {
-      atomicExch(mine, kFlagInclusive | count);
-    } else {
-      atomicExch(mine, kFlagAggregate | count);
-      for (long long k = t - 1;; --k) {
-        unsigned word;
-        do {
-          word = load_status(status + k * kDigits + tid);
-        } while ((word & ~kCountMask) == 0);
-        exclusive += word & kCountMask;
-        if ((word & ~kCountMask) == kFlagInclusive) break;
-      }
-      atomicExch(mine, kFlagInclusive | (exclusive + count));
-    }
+    const unsigned exclusive =
+        gst::chained_exclusive(status + tid, t, kDigits, count);
     cursor[tid] = cursors_in[tid] + (int)exclusive;
     if (t == num_tiles - 1) {
       cursors_out[tid] = cursors_in[tid] + (int)(exclusive + count);

@@ -1,11 +1,54 @@
 // Device helpers shared by the radix kernels (tile_hist4.cu,
-// exclusive_scan.cu, downsweep.cu, binning.cu, global_hist.cu).
+// exclusive_scan.cu, downsweep.cu, binning.cu, global_hist.cu) and the
+// stitch kernels (stitch.cu).
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace gst {
+
+// ---- the chained scan with decoupled lookback (OneSweep.cu:164-344) -----
+//
+// A status word is a 2-bit flag over a 30-bit count, so a scanned range
+// holds fewer than 2^30 elements.  Words start zeroed (no flag).
+constexpr unsigned kFlagAggregate = 1u << 30;
+constexpr unsigned kFlagInclusive = 2u << 30;
+constexpr unsigned kCountMask = kFlagAggregate - 1;
+
+__device__ __forceinline__ unsigned load_status(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
+}
+
+// Called by one thread for tile t, whose word is status[t * stride]: it
+// publishes `count` as an aggregate (tile 0 at once as an inclusive
+// prefix), walks back over its predecessors' words, summing aggregates,
+// until it meets an inclusive prefix, publishes its own inclusive prefix
+// and returns the sum of the counts of tiles 0 .. t-1.  Tiles must be
+// handed out in the order blocks start (an atomic counter), so that every
+// tile waited on belongs to a block that is already running.
+__device__ __forceinline__ unsigned chained_exclusive(unsigned* status,
+                                                      long long t,
+                                                      int stride,
+                                                      unsigned count) {
+  unsigned* mine = status + t * stride;
+  if (t == 0) {
+    atomicExch(mine, kFlagInclusive | count);
+    return 0u;
+  }
+  atomicExch(mine, kFlagAggregate | count);
+  unsigned exclusive = 0;
+  for (long long k = t - 1;; --k) {
+    unsigned word;
+    do {
+      word = load_status(status + k * stride);
+    } while ((word & ~kCountMask) == 0);
+    exclusive += word & kCountMask;
+    if ((word & ~kCountMask) == kFlagInclusive) break;
+  }
+  atomicExch(mine, kFlagInclusive | (exclusive + count));
+  return exclusive;
+}
 
 // The 4-bit digit at `shift` of a biased int32 key code x = u ^ 0x80000000:
 // the xor restores the u32 code u, so the top nibble (shift 28) is right.

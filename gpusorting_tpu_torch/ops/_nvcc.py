@@ -85,19 +85,21 @@ def load(source: pathlib.Path) -> ctypes.CDLL:
 
 
 def check(op: str, name: str, t: torch.Tensor, shape: tuple,
-          device: torch.device, ref: str = "input") -> None:
-    """Raise unless `t` is a contiguous, 16-byte aligned int32 tensor of
-    `shape` on `device` (where the tensor named `ref` lies)."""
-    if t.dtype != torch.int32:
-        raise TypeError(f"{op}: {name} must be int32, got {t.dtype}")
+          device: torch.device, ref: str = "input",
+          dtype: torch.dtype = torch.int32, align: int = 16) -> None:
+    """Raise unless `t` is a contiguous, `align`-byte aligned tensor of
+    `dtype` (int32 by default) and `shape` on `device` (where the tensor
+    named `ref` lies)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{op}: {name} shape {tuple(t.shape)} != {shape}")
     if t.device != device:
         raise ValueError(f"{op}: {name} on {t.device}, {ref} on {device}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{op}: {name} must be {align}-byte aligned")
 
 
 def launch(op: str, fn, *args, device: torch.device) -> None:

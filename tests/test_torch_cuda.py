@@ -1,8 +1,9 @@
 """Tests of gpusorting_tpu_torch that need an NVIDIA card: each hand-written
 kernel (relocate, tile_histogram4, exclusive_scan, downsweep,
-global_histogram, binning_pass, local_stages, global_stage) against its
-plain version, their launch checks, and the engines and public entry
-points through the kernels against flat torch.sort.
+global_histogram, binning_pass, local_stages, global_stage, compact_ops,
+expand_ops) against its plain version, their launch checks, the engines
+and public entry points through the kernels against flat torch.sort, and
+the segmented sort against the composite oracle.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -17,8 +18,11 @@ import torch
 
 import gpusorting_tpu_torch as gstt
 from gpusorting_tpu_torch.core import codec, config, prng
-from gpusorting_tpu_torch.ops import (bitonic, ffx, kernels, radix, radix16,
-                                      relocate, rangesweep as rs, rts)
+from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels,
+                                      radix, radix16, relocate,
+                                      rangesweep as rs, rts, stitch)
+from gpusorting_tpu_torch.segsort import splitsort
+from gpusorting_tpu_torch.utils import validate
 
 pytestmark = pytest.mark.cuda
 
@@ -449,3 +453,130 @@ def test_network_and_radix16_engines_match_torch_sort(cuda, n):
     grew = [f.launches > c for f, c in zip(fns, counts)]
     # a network of at most one tile runs no global stage
     assert grew == [True, True, True, n > 1 << 13]
+
+
+# ---- the stitch kernels (compact, expand) and the segmented sort ------------
+
+
+def _stitch_mask(kind, n, dev):
+    g = torch.Generator().manual_seed(n)
+    if kind == "none":
+        m = torch.zeros(n, dtype=torch.bool)
+    elif kind == "all":
+        m = torch.ones(n, dtype=torch.bool)
+    elif kind == "half":
+        m = torch.rand(n, generator=g) < 0.5
+    elif kind == "sparse":
+        m = torch.rand(n, generator=g) < 1 / 64
+    else:   # segments: every other random segment, the last one ending at n
+        rng = np.random.default_rng(n)
+        lens = rng.integers(1, 300, n // 150 + 2)
+        ends = np.minimum(np.cumsum(lens), n)
+        starts = np.concatenate([[0], ends[:-1]])
+        pick = (np.arange(len(lens)) % 2 == 1) & (starts < n)
+        pick[np.nonzero(starts < n)[0][-1]] = True
+        return splitsort._interval_mask(starts[pick], (ends - starts)[pick],
+                                        n, dev)
+    return m.to(dev)
+
+
+_STITCH_N = [1, 127, 129, (1 << 20) + 3]
+_MASKS = ["none", "all", "half", "sparse", "segments"]
+
+
+@pytest.mark.parametrize("n", _STITCH_N)
+@pytest.mark.parametrize("kind", _MASKS)
+def test_stitch_kernels_match_plain(cuda, kind, n):
+    mask = _stitch_mask(kind, n, cuda)
+    g = torch.Generator().manual_seed(n + 1)
+    planes = [torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                            generator=g).to(cuda) for _ in range(3)]
+    want_cnt = int(mask.sum())
+    for ops in (planes[:1], planes[:2], planes):
+        before = stitch.compact_ops.launches
+        packed, cnt = stitch.compact_ops(ops, mask)
+        torch.cuda.synchronize()
+        assert stitch.compact_ops.launches == before + 1
+        assert cnt.device == mask.device and cnt.dtype == torch.int32
+        assert int(cnt) == want_cnt
+        wpacked, _ = stitch.compact_plain(ops, mask)
+        for p, w in zip(packed, wpacked):
+            assert torch.equal(p[:want_cnt], w[:want_cnt])
+        for length in (n, max(want_cnt - 5, 0)):
+            srcs = [p[:length] for p in ops]
+            before = stitch.expand_ops.launches
+            got = stitch.expand_ops(srcs, mask)
+            torch.cuda.synchronize()
+            assert stitch.expand_ops.launches == before + 1
+            for gt, w in zip(got, stitch.expand_plain(srcs, mask)):
+                assert torch.equal(gt, w)
+
+
+def test_stitch_checks_on_card(cuda):
+    x = torch.zeros(256, dtype=torch.int32, device=cuda)
+    m = torch.ones(256, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="mask on"):
+        stitch.compact_ops((x.cpu(),), m)
+    with pytest.raises(ValueError, match="contiguous"):
+        stitch.expand_ops((x[::2],), m)
+    with pytest.raises(TypeError, match="bool"):
+        stitch.expand_ops((x,), m.to(torch.uint8))
+    before = (stitch.compact_ops.launches, stitch.expand_ops.launches)
+    packed, cnt = stitch.compact_ops((x[:0],), m[:0])     # nothing to launch
+    assert int(cnt) == 0 and packed[0].numel() == 0
+    assert (stitch.compact_ops.launches,
+            stitch.expand_ops.launches) == before
+
+
+def _segsort_case(lens, seed, dev):
+    lens = np.asarray(lens, np.int64)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]])).to(
+        torch.int32).to(dev)
+    total = int(lens.sum())
+    keys = prng.make_test_keys(total, seed, torch.uint32,
+                               gstt.EntropyPreset.E054, device=dev)
+    return offs, len(lens), total, keys
+
+
+def _check_segsort(offs, S, total, keys, want_plan, calls):
+    vals = keys.clone()                         # the stability oracle
+    plan = gstt.make_segsort_plan(offs, total, S)
+    assert want_plan in plan.window_plan(32, True)
+    before = (stitch.compact_ops.launches, stitch.expand_ops.launches)
+    gk, gv = gstt.split_sort_pairs(offs, keys, vals, S, total)
+    torch.cuda.synchronize()
+    assert (stitch.compact_ops.launches - before[0],
+            stitch.expand_ops.launches - before[1]) == (calls, calls)
+    wk, wv = flat_sort.segmented_sort_pairs(offs, keys, vals, total)
+    assert torch.equal(gk.view(torch.int32), wk.view(torch.int32))
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+    assert int(validate.count_segmented_violations(offs, gk)) == 0
+    sk = gstt.split_sort_keys(offs, keys, S, plan=plan)
+    assert torch.equal(sk.view(torch.int32), wk.view(torch.int32))
+
+
+def test_segsort_split_on_card(cuda):
+    """A bimodal layout takes the length-class split: one compact and one
+    expand per call, bit-exact with the composite oracle."""
+    rng = np.random.default_rng(3)
+    lens = list(rng.integers(1, 33, 60_000))
+    for at in (0, 20_000, 59_999):
+        lens.insert(at, 40_000)
+    _check_segsort(*_segsort_case(lens, 3, cuda), "split", 1)
+
+
+def test_segsort_classes_on_card(cuda):
+    """Bulk, one padded class and a tail: the multi-class plan, three
+    compacts and three expands per call.  About 55% of the elements lie in
+    segments of 1-32, 18% in 8193-16384 and 27% in one of 2^18, so no bin
+    bound covers 75% (no split) and 45% is extracted."""
+    rng = np.random.default_rng(4)
+    lens = list(rng.integers(1, 33, 32_000))
+    lens += [int(x) for x in rng.integers(8193, 16385, 14)]
+    lens += [1 << 18]
+    rng.shuffle(lens)
+    offs, S, total, keys = _segsort_case(lens, 4, cuda)
+    cp = gstt.make_segsort_plan(offs, total, S).window_plan(32, True)
+    assert [c["B"] for c in cp["classes"]["padded"]] == [16384]
+    assert cp["classes"]["tail"] is not None
+    _check_segsort(offs, S, total, keys, "classes", 3)

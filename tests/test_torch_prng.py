@@ -71,6 +71,53 @@ def test_make_descending_keys(tdtype, jdtype):
                                   want.view(np.int32))
 
 
+@pytest.mark.parametrize("total,max_len,seed", [
+    (1, 4, 0), (4096, 4, 1), (10_000, 1000, 2**32 - 1), (1 << 14, 1 << 18, 7),
+    (0, 16, 3)])
+def test_make_random_segments_bit_exact(total, max_len, seed):
+    """The batched draws give JAX's one-at-a-time lengths."""
+    want, wcount = jprng.make_random_segments(total, max_len, seed)
+    got, count = prng.make_random_segments(total, max_len, seed,
+                                           device="cpu")
+    assert got.dtype == torch.int32 and count == wcount == got.shape[0]
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("total,seg_length", [(4096, 32), (1000, 7),
+                                              (10, 64)])
+def test_make_fixed_segments_bit_exact(total, seg_length):
+    want, wcount = jprng.make_fixed_segments(total, seg_length)
+    got, count = prng.make_fixed_segments(total, seg_length, device="cpu")
+    assert got.dtype == torch.int32 and count == wcount
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.asarray(want))
+    with pytest.raises(ValueError, match="positive"):
+        prng.make_fixed_segments(total, 0, device="cpu")
+
+
+@pytest.mark.parametrize("bits", [4, 12, 31, 32])
+def test_make_masked_random_values_bit_exact(bits):
+    want = np.asarray(jprng.make_masked_random_values(3001, bits, 9))
+    got = prng.make_masked_random_values(3001, bits, 9, device="cpu")
+    assert got.dtype == torch.uint32
+    np.testing.assert_array_equal(got.view(torch.int32).numpy().view(
+        np.uint32), want)
+
+
+def test_make_unique_shuffled_is_a_seeded_permutation():
+    """Not JAX's order (torch.randperm): a permutation of 0..n-1, the same
+    for the same seed."""
+    a = prng.make_unique_shuffled(5000, 4, device="cpu")
+    assert a.dtype == torch.uint32
+    ai = a.view(torch.int32)
+    assert torch.equal(torch.sort(ai).values, torch.arange(5000,
+                                                           dtype=torch.int32))
+    assert torch.equal(ai, prng.make_unique_shuffled(5000, 4,
+                                                     device="cpu").view(
+                                                         torch.int32))
+
+
 def test_cuda_default_raises_without_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
