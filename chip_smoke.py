@@ -28,8 +28,8 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      tuning tile for device_radix (exclusive_scan on the pass's 16*T
      counts) and FFX's fixed tile (exclusive_scan on its 16*B block sums,
      the downsweep by the table its ScanAdd builds): tile_histogram4 at
-     all 8 shifts, and one downsweep pass on 1 and 3 planes at shifts 0 and
-     28, each bit for bit; exclusive_scan also on a 2^24 vector;
+     all 8 shifts, and one downsweep pass on 1, 2 and 3 planes at shifts 0
+     and 28, each bit for bit; exclusive_scan also on a 2^24 vector;
   5. the Backend.PALLAS path at n = 2^28 through the public entry points,
      for variant="device_radix" and variant="ffx": sort on uint32 / int32 /
      float32 keys, sort_pairs with a uint32 and an int64 payload, and
@@ -42,11 +42,11 @@ outside a checkout of the repository.  Phases, each fatal on failure:
   7. the radix16 and network kernels against their plain versions at
      n = 2^28, on uniform, E020 and all-equal keys, each bit for bit:
      global_histogram (also on a length that is not a multiple of 128); one
-     fused binning_pass on 1 and 3 planes at shifts 0 and 28 with its
+     fused binning_pass on 1, 2 and 3 planes at shifts 0 and 28 with its
      cursors_out, and the same pass as the adversarial_segments chain;
      local_stages (the whole in-tile schedule and one tail schedule) on 1
-     plane (1 key) and 4 planes (2 keys); global_stage at strides of one
-     and of four tiles;
+     plane (1 key), 3 planes (2 keys) and 4 planes (2 keys), each at its
+     tile; global_stage at strides of one and of four tiles;
   8. the Backend.PALLAS path at n = 2^28 for the variants this adds:
      "onesweep" (the default) and "radix16" on every key type and order,
      both payload widths, sort_pairs_wide and argsort, "forward_sweep" and
@@ -76,7 +76,31 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      prebuilt plan beside the oracle; compact and expand at 2^28 beside
      their bounds, plain versions and the torch calls computing the same
      function; and each stitch call of layouts (c) and (d) at its shape,
-     each held bit for bit against its plain version on the same operands.
+     each held bit for bit against its plain version on the same operands;
+ 13. the merge kernels (csrc/mergesweep.cu) and the binning pass's
+     digit-plane form against their plain versions at n = 2^28, on
+     uniform, E020 and all-equal keys, bit for bit: merge_tail on 1 plane
+     (1 key), 3 planes (2 keys: pairs and argsort) and 4 planes (2 keys)
+     at k below the tile, twice the tile and 2^28, each at its tile;
+     hyper_stage on the same planes as one trip and as the 2^28 pass's
+     split trips; binning_pass(digits=) on 1, 2 and 3 planes into 16
+     row-aligned regions, uniform and skewed bucket planes, with its
+     cursors_out;
+ 14. Backend.PALLAS at n = 2^28 for variant="splitsweep" and
+     "mergesweep": every key type and order, both payload widths,
+     sort_pairs_wide and argsort, each held like phase 2, and mergesweep's
+     keys and pairs again with the hyper switch on; each call's launches
+     asserted (splitsweep one digit-plane binning pass and one compact, so
+     no fallback; mergesweep log2(N/L) merge tails and the high strides'
+     global stages, or with the switch on hyper-stage trips and no global
+     stage); then a splitsweep keys, pairs and 64-bit pairs call record
+     their digit-plane pass and compact, each held bit for bit against its
+     plain version on the same operands and timed;
+ 15. times: the two variants end to end (mergesweep also with the hyper
+     switch on) beside radix16, device_radix and flat torch.sort;
+     mergesweep's keys and pairs at segment lengths 2^20 .. 2^27 with the
+     switch off and on, and at 2^28 (one segment: the flat sort); each new
+     kernel beside its bound and its plain version.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -85,6 +109,7 @@ them.  The line before the last lists the kernels; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -126,8 +151,9 @@ def main() -> int:
     import gpusorting_tpu_torch as gstt
     from gpusorting_tpu_torch.core import codec, prng
     from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, flat_sort,
-                                          kernels, radix16, relocate,
-                                          rangesweep as rs, rts, stitch)
+                                          kernels, mergesweep, radix16,
+                                          relocate, rangesweep as rs, rts,
+                                          splitsweep, stitch)
     from gpusorting_tpu_torch.segsort import splitsort
     from gpusorting_tpu_torch.utils import timing, validate
 
@@ -157,7 +183,7 @@ def main() -> int:
     # ---- phase 0: build every kernel, one nvcc per source, all at once ----
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
-               bitonic.SOURCE, stitch.SOURCE)
+               bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -430,7 +456,7 @@ def main() -> int:
                     table = checked_scan(counts.T.reshape(-1),
                                          f"{name} 16*T table")
                     scan_len = table.numel()
-                for ops in (planes[:1], planes):
+                for ops in (planes[:1], planes[:2], planes):
                     check("downsweep",
                           rts.downsweep(ops, table, shift, rows_t),
                           rts.downsweep_plain(ops, table, shift, rows_t),
@@ -672,7 +698,7 @@ def main() -> int:
         bounds = sorted({0, T16} | set(segs))
         for p in (0, 7):
             shift = 4 * p
-            for ops in (planes[:1], planes):
+            for ops in (planes[:1], planes[:2], planes):
                 got, cur = radix16.binning_pass(ops, bases[p], shift,
                                                 r16_rows)
                 want, wcur = radix16.binning_pass_plain(ops, bases[p], shift,
@@ -694,7 +720,9 @@ def main() -> int:
                 del got, want, out
         del planes
 
-        for num_ops, num_keys in ((1, 1), (4, 2)):
+        # 3 planes (2 keys) is the (code, index, payload) of pairs and
+        # argsort, at its own tile
+        for num_ops, num_keys in ((1, 1), (3, 2), (4, 2)):
             tr = bitonic.network_tile_rows(dev, num_ops)
             te = tr * LANES
             ops = [x.view(-1, LANES), idx.view(-1, LANES),
@@ -1291,6 +1319,471 @@ def main() -> int:
     del timing_cases
     free()
 
+    # ---- phase 13: the merge kernels and the digit-plane pass vs plain ----
+    merge_err = {"merge_tail": 0, "hyper_stage": 0, "binning_digits": 0}
+
+    def check_merge(kname, got, want, what):
+        for g, w in zip(got, want):
+            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+            merge_err[kname] = max(merge_err[kname], err)
+            _require(torch.equal(g, w), f"{kname} != plain on {what}")
+
+    def in_place_pair(fn, plain, ops, *args):
+        """The kernel and its plain version, each on its own copy."""
+        got = fn([y.clone() for y in ops], *args)
+        want = plain([y.clone() for y in ops], *args)
+        return got, want
+
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    gen13 = torch.Generator(device=dev)
+    gen13.manual_seed(SEED + 13)
+    for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
+                                 ("E020", gstt.EntropyPreset.E020, False),
+                                 ("all_equal", None, True)):
+        if equal:
+            x = torch.full((N,), 0x1234ABCD, dtype=torch.int32, device=dev)
+        else:
+            x = codec.encode_biased(prng.make_test_keys(
+                N, SEED + 14, torch.uint32, entropy, device=dev))
+        rides = tuple(prng.hybrid_taus_bits(N, SEED + j, device=dev)
+                      .view(torch.int32) for j in (15, 16))
+        # 3 planes (2 keys) is the (code, index, payload) of pairs and
+        # argsort, at its own tile
+        for num_ops, num_keys in ((1, 1), (3, 2), (4, 2)):
+            tr = bitonic.network_tile_rows(dev, num_ops)
+            te = tr * LANES
+            ops = [x.view(-1, LANES), idx.view(-1, LANES),
+                   rides[0].view(-1, LANES), rides[1].view(-1, LANES)]
+            ops = ops[:num_ops]
+            for k in (te // 4, 2 * te, N):
+                check_merge("merge_tail", *in_place_pair(
+                    mergesweep.merge_tail, mergesweep.merge_tail_plain, ops,
+                    k, tr, num_keys), f"{name} k={k}, {num_ops} planes")
+            # one trip of as many stages as a block holds, then the 2^28
+            # pass's split trips, each against the plain strides
+            per_trip = (te // mergesweep.MIN_COLS).bit_length() - 1
+            k1 = te << per_trip
+            ((j_hi, j_lo, cols),) = mergesweep.hyper_trips(k1, te, te)
+            check_merge("hyper_stage", *in_place_pair(
+                mergesweep.hyper_stage, mergesweep.hyper_stage_plain, ops,
+                k1, j_hi, j_lo, num_keys, cols),
+                f"{name} k={k1} one trip, {num_ops} planes")
+            trips = mergesweep.hyper_trips(N, te, te)
+            for j_hi, j_lo, cols in trips:
+                check_merge("hyper_stage", *in_place_pair(
+                    mergesweep.hyper_stage, mergesweep.hyper_stage_plain,
+                    ops, N, j_hi, j_lo, num_keys, cols),
+                    f"{name} k=N trip {j_hi}..{j_lo}, {num_ops} planes")
+            emit(phase="kernel_vs_plain", kernel="merge_tail+hyper_stage",
+                 input=name, planes=num_ops, num_keys=num_keys, n=N,
+                 tile_rows=tr, tail_k=[te // 4, 2 * te, N],
+                 one_trip=[k1, per_trip], split_trips=trips, bit_exact=True)
+            del ops
+
+        # the digit-plane pass into 16 row-aligned regions of slack 1.35
+        rows = N // LANES
+        cap_rows = splitsweep._cap_rows(rows, 1.35)
+        bases = (torch.arange(16, dtype=torch.int32, device=dev)
+                 * (cap_rows * LANES))
+        planes3 = [x.view(rows, LANES), rides[0].view(rows, LANES),
+                   rides[1].view(rows, LANES)]
+        for bname in ("uniform", "skewed"):
+            r = torch.randint(0, 16 if bname == "uniform" else 12,
+                              (rows, LANES), generator=gen13, device=dev,
+                              dtype=torch.int32)
+            if bname == "skewed":    # buckets 6-9 empty, the rest 1/12 each
+                r = (r + 4 * (r >= 6)).to(torch.int32)
+            for n_planes in (1, 2, 3):
+                ops = planes3[:n_planes]
+
+                def run(fn):
+                    out = [torch.zeros(16 * cap_rows, LANES,
+                                       dtype=torch.int32, device=dev)
+                           for _ in ops]
+                    outs, cur = fn(ops, bases, 0, r16_rows, out, digits=r)
+                    return outs + [cur]
+                check_merge("binning_digits", run(radix16.binning_pass),
+                            run(radix16.binning_pass_plain),
+                            f"{name} {bname} buckets, {n_planes} planes")
+                emit(phase="kernel_vs_plain", kernel="binning_pass_digits",
+                     input=name, buckets=bname, planes=n_planes, n=N,
+                     tile_rows=r16_rows, cap_rows=cap_rows, bit_exact=True)
+            del r
+        torch.cuda.synchronize()
+        del x, rides, planes3
+        free()
+    del idx
+    free()
+
+    # ---- phase 14: splitsweep and mergesweep through the entry points ----
+    last_fns = {"merge_tail": mergesweep.merge_tail,
+                "hyper_stage": mergesweep.hyper_stage,
+                "global_stage": bitonic.global_stage,
+                "binning_pass": radix16.binning_pass,
+                "compact_ops": stitch.compact_ops}
+
+    def last_counts():
+        return tuple(f.launches for f in last_fns.values())
+
+    seg_default = gstt.get_routing_parameters(info).mergesweep_seg_elems
+
+    def merge_launches(num_ops, hyper):
+        L = min(seg_default, N)
+        te = bitonic.network_tile_rows(dev, num_ops) * LANES
+        tails = glob = trips = 0
+        k = 2 * L
+        while k <= N:
+            tails += 1
+            if k > te and hyper:
+                trips += len(mergesweep.hyper_trips(k, te, te))
+            elif k > te:
+                glob += (k // te).bit_length() - 1
+            k *= 2
+        return (tails, trips, glob, 0, 0)
+
+    def last_expected(variant, num_ops, hyper):
+        if variant == "splitsweep":
+            return (0, 0, 0, 1, 1)
+        return merge_launches(num_ops, hyper)
+
+    last_runs = []
+
+    def last_call(label, fn, want):
+        before = last_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(last_counts(), before))
+        _require(delta == want, f"{label}: launches {delta} != {want}")
+        last_runs.append({"call": label, "launches": dict(zip(last_fns,
+                                                               delta))})
+        return out
+
+    for f in last_fns.values():
+        f.launches = 0
+    hyper_default = mergesweep._USE_HYPER
+    for variant, hyper in (("splitsweep", False), ("mergesweep", False),
+                           ("mergesweep", True)):
+        mergesweep._USE_HYPER = hyper
+        full = not hyper
+        tag = f"{variant}{' hyper' if hyper else ''}"
+        pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
+        for kname, make in key_cases if full else key_cases[:1]:
+            keys = make()
+            perm = oracle_perm(keys)
+            for order in orders if full else orders[:1]:
+                out = last_call(f"{tag} {kname} {order.value}",
+                                lambda: gstt.sort(keys, order=order, **pal),
+                                last_expected(variant, 1, hyper))
+                _require(same_bits(out, keys, perm, order),
+                         f"{tag} {kname} {order.value} != torch.sort")
+                del out
+            del keys, perm
+            free()
+        for pname, pdtype, m_ops in ((("sort_pairs_u32", torch.uint32, 3),
+                                      ("sort_pairs_i64", torch.int64, 4))
+                                     if full else
+                                     (("sort_pairs_u32", torch.uint32, 3),)):
+            keys, vals = prng.make_test_pairs(N, SEED + 7, torch.uint32,
+                                              pdtype, gstt.EntropyPreset.E033,
+                                              device=dev)
+            perm = oracle_perm(keys)
+            for order in orders if full else orders[:1]:
+                ok, ov = last_call(
+                    f"{tag} {pname} {order.value}",
+                    lambda: gstt.sort_pairs(keys, vals, order=order, **pal),
+                    last_expected(variant, m_ops, hyper))
+                _require(same_bits(ok, keys, perm, order)
+                         and same_bits(ov, vals, perm, order),
+                         f"{tag} {pname} {order.value} != torch.sort")
+                _require(int(validate.count_pair_violations(ok, ov, order))
+                         == 0, f"{tag} {pname}: stability violated")
+                del ok, ov
+            if pdtype == torch.int64:
+                lo, hi = codec.split_wide(vals)
+                for order in orders:
+                    gk, glo, ghi = last_call(
+                        f"{tag} sort_pairs_wide {order.value}",
+                        lambda: gstt.sort_pairs_wide(keys, lo, hi,
+                                                     order=order, **pal),
+                        last_expected(variant, 4, hyper))
+                    _require(same_bits(gk, keys, perm, order)
+                             and same_bits(glo, lo, perm, order)
+                             and same_bits(ghi, hi, perm, order),
+                             f"{tag} sort_pairs_wide {order.value} "
+                             "!= torch.sort")
+                    del gk, glo, ghi
+                del lo, hi
+            del keys, vals, perm
+            free()
+        if full:
+            keys = prng.make_test_keys(N, SEED + 8, torch.uint32,
+                                       gstt.EntropyPreset.E081, device=dev)
+            perm = oracle_perm(keys).to(torch.int32)
+            for order in orders:
+                out = last_call(f"{tag} argsort {order.value}",
+                                lambda: gstt.argsort(keys, order=order,
+                                                     **pal),
+                                last_expected(variant, 3, hyper))
+                _require(torch.equal(out, flip(perm, order)),
+                         f"{tag} argsort {order.value} != torch.sort")
+                del out
+            del keys, perm
+            free()
+    mergesweep._USE_HYPER = hyper_default
+    last_launches = dict(zip(last_fns, last_counts()))
+    _require(all(v > 0 for v in last_launches.values()),
+             f"splitsweep/mergesweep missed a kernel: {last_launches}")
+    emit(phase="pallas_path_splitsweep_mergesweep", n=N,
+         mergesweep_seg_elems=seg_default,
+         network_tile_rows={k: bitonic.network_tile_rows(dev, k)
+                            for k in (1, 3, 4)},
+         splitsweep_tile_rows=r16_rows, splitsweep_fallbacks=0,
+         launches=last_launches, runs=last_runs, bit_exact=True)
+
+    # the digit-plane pass and the compact of a splitsweep keys call, a
+    # pairs call (2 planes) and a 64-bit pairs call (3 planes), at their
+    # shapes: each sort records its calls' operands and answers them with
+    # the plain versions, so that no launch counter moves; each kernel is
+    # then held bit for bit against its plain version on the same operands
+    # (compact on [:count] and the count, over 16 * cap_rows * 128 slots
+    # with a prefix mask per region) and timed
+    real_ss = {"binning": radix16.binning_pass,
+               "compact": stitch.compact_ops}
+    ss_calls = []
+
+    def rec_binning(planes, cursors, shift, tile_rows, out=None,
+                    digits=None):
+        ss_calls.append(("binning", (tuple(planes), cursors, shift,
+                                     tile_rows, out[0].shape[0], digits)))
+        return radix16.binning_pass_plain(planes, cursors, shift, tile_rows,
+                                          out, digits)
+
+    def rec_compact(planes, mask):
+        ss_calls.append(("compact", (tuple(planes), mask)))
+        return stitch.compact_plain(tuple(planes), mask)
+
+    def ss_binning(fn, planes, cursors, shift, tile_rows, out_rows, digits):
+        out = [torch.zeros(out_rows, LANES, dtype=torch.int32, device=dev)
+               for _ in planes]
+        outs, cur = fn(list(planes), cursors, shift, tile_rows, out,
+                       digits=digits)
+        return list(outs) + [cur]
+
+    keys = prng.make_test_keys(N, SEED + 17, torch.uint32,
+                               gstt.EntropyPreset.E033, device=dev)
+    pal = {"backend": gstt.Backend.PALLAS, "variant": "splitsweep"}
+    ss_shapes = []
+    for label, sort in (
+            ("keys", lambda: gstt.sort(keys, **pal)),
+            ("pairs_u32", lambda: gstt.sort_pairs(
+                keys, prng.hybrid_taus_bits(N, SEED + 18, device=dev),
+                **pal)),
+            ("pairs_i64", lambda: gstt.sort_pairs(
+                keys, torch.arange(N, dtype=torch.int64, device=dev),
+                **pal))):
+        radix16.binning_pass = rec_binning
+        stitch.compact_ops = rec_compact
+        try:
+            sort()
+        finally:
+            radix16.binning_pass = real_ss["binning"]
+            stitch.compact_ops = real_ss["compact"]
+        _require([k for k, _ in ss_calls] == ["binning", "compact"],
+                 f"splitsweep {label} calls {[k for k, _ in ss_calls]}")
+        for kname, args in ss_calls:
+            if kname == "binning":
+                planes, cursors, shift, tr, out_rows, digits = args
+                what = f"splitsweep {label}, {len(planes)} planes"
+                check_merge("binning_digits",
+                            ss_binning(real_ss["binning"], *args),
+                            ss_binning(radix16.binning_pass_plain, *args),
+                            what)
+                out_t = [torch.empty(out_rows, LANES, dtype=torch.int32,
+                                     device=dev) for _ in planes]
+                ms = median_ms(lambda: real_ss["binning"](
+                    list(planes), cursors, shift, tr, out_t, digits=digits))
+                del out_t
+                n_slots = count = planes[0].numel()
+            else:
+                planes, mask = args
+                what = f"splitsweep {label}, {len(planes)} planes, n " \
+                       f"{mask.numel()}"
+                (packed, cnt), (wpacked, wcnt) = (
+                    real_ss["compact"](planes, mask),
+                    stitch.compact_plain(planes, mask))
+                count = int(wcnt)
+                _require(int(cnt) == count,
+                         f"compact count {int(cnt)} != {count} on {what}")
+                check_stitch("compact", [p[:count] for p in packed],
+                             [w[:count] for w in wpacked], what)
+                del packed, wpacked
+                ms = median_ms(lambda: real_ss["compact"](planes, mask))
+                n_slots = mask.numel()
+            ss_shapes.append({"call": label, "kernel": kname,
+                              "planes": len(planes), "n": n_slots,
+                              "count": count, "ms": ms})
+        ss_calls.clear()
+        free()
+    del keys, args, planes, mask, cursors, digits
+    free()
+    emit(phase="splitsweep_at_shape", calls=ss_shapes, bit_exact=True)
+
+    # ---- phase 15: times ---------------------------------------------------
+    payload = torch.arange(N, dtype=torch.int32, device=dev)
+    whats = (("keys", lambda b, v: lambda k: gstt.sort(k, backend=b,
+                                                       variant=v)),
+             ("pairs", lambda b, v: lambda k: gstt.sort_pairs(
+                 k, payload, backend=b, variant=v)),
+             ("argsort", lambda b, v: lambda k: gstt.argsort(k, backend=b,
+                                                             variant=v)))
+
+    def e2e_ms(fn):
+        r = timing.batch_timing(fn, N, batch=batch, seed=SEED, device=dev)
+        free()
+        return r["seconds_per_sort"] * 1e3, [r["spread_min_s"] * 1e3,
+                                             r["spread_max_s"] * 1e3]
+
+    for what, make_fn in whats:
+        routes = [(f"pallas_{v}", gstt.Backend.PALLAS, v)
+                  for v in ("splitsweep", "mergesweep", "radix16",
+                            "device_radix")]
+        routes.append(("flat_torch_sort", gstt.Backend.XLA, "onesweep"))
+        for route, backend, variant in routes:
+            ms, spread = e2e_ms(make_fn(backend, variant))
+            emit(phase="end_to_end", what=what, route=route, n=N,
+                 batch=batch, ms=ms, spread_ms=spread)
+        mergesweep._USE_HYPER = True
+        ms, spread = e2e_ms(make_fn(gstt.Backend.PALLAS, "mergesweep"))
+        mergesweep._USE_HYPER = hyper_default
+        emit(phase="end_to_end", what=what, route="pallas_mergesweep_hyper",
+             n=N, batch=batch, ms=ms, spread_ms=spread)
+
+    # mergesweep's segment length, the switch off and on, up to 2^27 (one
+    # merge pass); L = N (one segment) is the flat torch.sort, no merge
+    # kernel, read once beside them
+    row = gstt.get_routing_parameters(info)
+    seg_lengths = (1 << 20, 1 << 22, 1 << 24, 1 << 26, 1 << 27)
+    seg_sweep = {}
+    try:
+        for seg in seg_lengths + (N,):
+            gstt.set_routing_override(dataclasses.replace(
+                row, mergesweep_seg_elems=seg))
+            for hyper in (False, True) if seg < N else (False,):
+                mergesweep._USE_HYPER = hyper
+                for what, make_fn in whats[:2]:
+                    ms, spread = e2e_ms(make_fn(gstt.Backend.PALLAS,
+                                                "mergesweep"))
+                    seg_sweep[what, seg, hyper] = ms
+                    emit(phase="mergesweep_seg_sweep", what=what,
+                         seg_elems=seg, hyper=hyper, n=N, batch=batch,
+                         ms=ms, spread_ms=spread)
+    finally:
+        gstt.clear_routing_override()
+        mergesweep._USE_HYPER = hyper_default
+    best = min(seg_lengths, key=lambda s: seg_sweep["keys", s, False])
+    emit(phase="mergesweep_seg_best", what="keys", hyper=False,
+         seg_elems=best, ms=seg_sweep["keys", best, False],
+         one_segment_ms=seg_sweep["keys", N, False],
+         installed=row.mergesweep_seg_elems)
+
+    x = codec.encode_biased(prng.make_test_keys(N, SEED, torch.uint32,
+                                                device=dev))
+    # where a keys sort's time goes: mergesweep at the row's segment
+    # length with the switch off, splitsweep at the row's tile
+    K = N // seg_default
+    runs1 = mergesweep._phase1([x], 1, K, seg_default)
+    tr1 = bitonic.network_tile_rows(dev, 1)
+    steps = {"phase1_segment_sorts": median_ms(
+        lambda: mergesweep._phase1([x], 1, K, seg_default))}
+    k = 2 * seg_default
+    while k <= N:
+        work = [y.clone() for y in runs1]
+        steps[f"merge_pass_k{k}"] = median_ms(
+            lambda: mergesweep._run_merge_pass(work, k, tr1, 1, tr1 * LANES))
+        k *= 2
+    del runs1, work
+    emit(phase="per_phase_mergesweep", what="keys", n=N,
+         seg_elems=seg_default, hyper=False, tile_rows=tr1, ms=steps,
+         sum_ms=sum(steps.values()))
+    planes, bucket, counts, cap_rows, _, overflow = splitsweep._prepare(
+        x, (), r16_rows, 64, 1.35)
+    _require(not overflow, "splitsweep overflowed on uniform keys")
+    (part,) = splitsweep._partition_16(planes, bucket, cap_rows, r16_rows)
+    cap = cap_rows * LANES
+    valid = splitsweep._valid(counts, cap)
+    regions = torch.where(valid, part.view(16, cap), splitsweep.SENTINEL)
+    sorted_regions = torch.sort(regions, dim=1).values
+    steps = {
+        "splitters_buckets_counts": median_ms(lambda: splitsweep._prepare(
+            x, (), r16_rows, 64, 1.35)),
+        "partition": median_ms(lambda: splitsweep._partition_16(
+            planes, bucket, cap_rows, r16_rows)),
+        "mask_and_region_sort": median_ms(lambda: torch.sort(torch.where(
+            valid, part.view(16, cap), splitsweep.SENTINEL), dim=1)),
+        "compact": median_ms(lambda: stitch.compact_ops(
+            (sorted_regions.view(-1),), valid.view(-1))),
+    }
+    emit(phase="per_phase_splitsweep", what="keys", n=N, tile_rows=r16_rows,
+         cap_rows=cap_rows, ms=steps, sum_ms=sum(steps.values()))
+    del planes, bucket, part, valid, regions, sorted_regions
+    free()
+    te1 = tr1 * LANES
+    trips1 = mergesweep.hyper_trips(N, te1, te1)
+    j_hi, j_lo, cols = trips1[0]
+    # bytes: the plane read and written once; operations: 4 32-bit
+    # operations a pair and stage at the card's 32-bit non-tensor peak
+    stage_ops_ms = (N // 2) * 4 / PEAK_OPS_32 * 1e3
+    tail_stages = te1.bit_length() - 1
+    hyper_stages = (2 * j_hi // j_lo).bit_length() - 1
+    plane_ms = 8 * N / bw * 1e3
+    work = [x.clone().view(-1, LANES)]
+    last_times = {
+        "merge_tail": dict(
+            ms=median_ms(lambda: mergesweep.merge_tail(work, N, tr1, 1)),
+            plain_ms=median_ms(lambda: mergesweep.merge_tail_plain(
+                work, N, tr1, 1), iters=3),
+            stages=tail_stages,
+            bound_ms=max(plane_ms, tail_stages * stage_ops_ms),
+            bound_by=("bytes" if plane_ms >= tail_stages * stage_ops_ms
+                      else "operations")),
+        "hyper_stage": dict(
+            ms=median_ms(lambda: mergesweep.hyper_stage(
+                work, N, j_hi, j_lo, 1, cols)),
+            plain_ms=median_ms(lambda: mergesweep.hyper_stage_plain(
+                work, N, j_hi, j_lo, 1, cols), iters=3),
+            stages=hyper_stages, trip=[j_hi, j_lo, cols],
+            bound_ms=max(plane_ms, hyper_stages * stage_ops_ms),
+            bound_by=("bytes" if plane_ms >= hyper_stages * stage_ops_ms
+                      else "operations")),
+    }
+    rows = N // LANES
+    cap_rows = splitsweep._cap_rows(rows, 1.35)
+    bases = (torch.arange(16, dtype=torch.int32, device=dev)
+             * (cap_rows * LANES))
+    pos = torch.arange(N, dtype=torch.int32, device=dev)
+    spl_c, spl_p = splitsweep._sample_splitters(x, pos, 64)
+    bucket = splitsweep._bucketize(x, pos, spl_c, spl_p).view(rows, LANES)
+    del pos
+    for n_planes in (1, 3):
+        ops = [x.view(rows, LANES)] + [payload.view(rows, LANES)] * (
+            n_planes - 1)
+        out = [torch.empty(16 * cap_rows, LANES, dtype=torch.int32,
+                           device=dev) for _ in ops]
+        last_times[f"binning_digits_{n_planes}"] = dict(
+            ms=median_ms(lambda: radix16.binning_pass(
+                ops, bases, 0, r16_rows, out, digits=bucket)),
+            plain_ms=median_ms(lambda: radix16.binning_pass_plain(
+                ops, bases, 0, r16_rows, out, digits=bucket), iters=3),
+            bound_ms=(4 + 8 * n_planes) * N / bw * 1e3, bound_by="bytes",
+            cap_rows=cap_rows)
+        del out
+    for kname, rec in last_times.items():
+        emit(phase="per_kernel", kernel=kname, n=N, library_ms=None,
+             library="none: no one torch call runs a partial Batcher merge "
+                     "or places a partition at given cursors", **rec)
+    del x, work, bucket, payload
+    free()
+
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
         return {"name": kname, "route": "cuda",
@@ -1312,6 +1805,15 @@ def main() -> int:
                 "bound_ms": times["bound_ms"],
                 "bound_by": times.get("bound_by", "bytes"),
                 "library_ms": times["library_ms"], "card": card}
+
+    def last_row(kname, replaces):
+        t = last_times[kname]
+        return {"name": kname, "route": "cuda",
+                "source": "gpusorting_tpu_torch/csrc/mergesweep.cu",
+                "replaces": replaces, "launches": last_launches[kname],
+                "max_abs_err": merge_err[kname], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None, "card": card}
 
     def radix_row(name, kname, source, replaces, times):
         return {"name": name, "route": "cuda",
@@ -1349,9 +1851,15 @@ def main() -> int:
         new_row("global_hist", "global_histogram", "global_hist.cu",
                 "gpusorting_tpu/ops/kernels.py:62",
                 new_times["global_histogram"]),
-        new_row("binning", "binning_pass", "binning.cu",
-                "gpusorting_tpu/ops/radix16.py:307",
-                new_times["binning_pass_1"]),
+        dict(new_row("binning", "binning_pass", "binning.cu",
+                     "gpusorting_tpu/ops/radix16.py:307",
+                     new_times["binning_pass_1"]),
+             digit_plane_launches=last_launches["binning_pass"],
+             digit_plane_max_abs_err=merge_err["binning_digits"],
+             digit_plane_ms=last_times["binning_digits_1"]["ms"],
+             digit_plane_plain_ms=last_times["binning_digits_1"]["plain_ms"],
+             digit_plane_bound_ms=last_times["binning_digits_1"][
+                 "bound_ms"]),
         new_row("local_stages", "local_stages", "bitonic.cu",
                 "gpusorting_tpu/ops/bitonic.py:94",
                 new_times["local_stages_in_tile"]),
@@ -1359,7 +1867,9 @@ def main() -> int:
                 "gpusorting_tpu/ops/bitonic.py:138",
                 new_times["global_stage"]),
         stitch_row("compact", "gpusorting_tpu/ops/stitch.py:85"),
-        stitch_row("expand", "gpusorting_tpu/ops/stitch.py:324")]}),
+        stitch_row("expand", "gpusorting_tpu/ops/stitch.py:324"),
+        last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91"),
+        last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172")]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

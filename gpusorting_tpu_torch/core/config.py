@@ -269,10 +269,10 @@ class RoutingParameters:
     the FFX engine's fixed tile, and the segmented sort's window caps and
     class bounds.
 
-    The JAX package's row carries two more kinds of field, which
+    The JAX package's row carries one more kind of field, which
     `routing_from_jax_fields` drops: the mapped-row crossovers
     (`map_rows_min_*`, a TPU `lax.map` route; the port sorts rows in one
-    batched `torch.sort`) and the mergesweep chunk (not ported yet).
+    batched `torch.sort`).
 
       rangesweep_min            — smallest keys-only n AUTO sends to
                                   rangesweep; None disables the route.
@@ -282,6 +282,10 @@ class RoutingParameters:
       rangesweep_min_pairs_wide — 64-bit payloads (4 planes).
       rangesweep_min_index      — argsort (2 planes).
       rangesweep_seg_elems*     — phase-1 chunk length L per mode.
+      mergesweep_seg_elems      — mergesweep's phase-1 segment length L
+                                  (a power of two, at least 1024): one
+                                  batched `torch.sort` of the N / L
+                                  segments, then log2(N / L) merge passes.
       ffx_tile_rows             — the FFX engine's tile (rows of 128 keys).
                                   FFX is fixed-tuning by definition
                                   (FFXParallelSort.cpp:28-43): recorded
@@ -314,6 +318,7 @@ class RoutingParameters:
     rangesweep_seg_elems_pairs_wide: int = 1 << 21
     rangesweep_min_index: int | None = None
     rangesweep_seg_elems_index: int = 1 << 21
+    mergesweep_seg_elems: int = 1 << 24
     ffx_tile_rows: int = 256
     window_max_keys: int = 32768
     window_max_fused: int = 32768
@@ -342,10 +347,21 @@ _ROUTING_TABLE = {
     # as the window grows; the bulk and padded bounds trade sorting in
     # place against extracting a class (a compact and an expand each way);
     # the extraction share gates when that copying pays.
+    # mergesweep's segment length L = 2^27 is the fastest that still merges:
+    # chip_smoke.py phase 15 on an NVIDIA H100 80GB HBM3 (700 W; the run
+    # PERF.md records as mergesweep's run C) timed 2^28 keys, switch off, at
+    # L = 2^20, 2^22, 2^24, 2^26, 2^27: 108.3, 85.2, 63.3, 42.4, 31.2 ms
+    # (pairs 319.0, 259.2, 210.7, 152.8, 118.6), one merge pass fewer
+    # winning each time.  The optimum is at the sweep's edge: L = 2^28 is
+    # one segment, the flat torch.sort (15.4 ms), which runs no merge
+    # kernel, so at n <= L this variant is that sort; whether mergesweep
+    # keeps a place on this card is open (ROADMAP).  It is the one
+    # measured field of this row, so `measured` stays False.
     "h100": RoutingParameters(rangesweep_min=1 << 28,
                               rangesweep_min_pairs=1 << 28,
                               rangesweep_min_pairs_wide=1 << 28,
                               rangesweep_min_index=1 << 28,
+                              mergesweep_seg_elems=1 << 27,
                               measured=False),
 }
 
@@ -379,8 +395,8 @@ def get_routing_parameters(info: DeviceInfo | None = None
 
 def routing_from_jax_fields(d: dict) -> RoutingParameters:
     """The port's row from a JAX `RoutingParameters` rendered by
-    `dataclasses.asdict`; the TPU-only `map_rows_min_*` fields and those of
-    modules not yet ported are dropped."""
+    `dataclasses.asdict`; the TPU-only `map_rows_min_*` fields are
+    dropped."""
     names = {f.name for f in dataclasses.fields(RoutingParameters)}
     return RoutingParameters(**{k: v for k, v in d.items() if k in names})
 

@@ -7,7 +7,14 @@
 // into T tiles of tile_elems elements, a 4-bit digit at `shift` and 16
 // starting cursors: for every element i in input order, with d its digit,
 //   out[p][cursors[d] + #{ earlier elements of digit d }] = in[p][i],
-// and cursors_out[d] = cursors[d] + #{ elements of digit d }.  Run over the
+// and cursors_out[d] = cursors[d] + #{ elements of digit d }.  In the
+// digit-plane form (the counterpart of `_build_pass(external_sp=True)`,
+// splitsweep's 16-bucket partition) each element's digit is read from an
+// int32 plane laid out like the inputs, values in [0, 16), instead of
+// taken from its code; the outputs may then have more rows than the inputs
+// (16 row-aligned bucket regions).  The TPU kernel's `flush_write` has no
+// counterpart: it plain-wrote the partial row of a region no other stream
+// shared, and here no row is shared at all.  Run over the
 // whole array with cursors = the global digit bases, that is one stable
 // pass.  A pass cut into tile ranges is one launch per range, all writing
 // into the same output buffers, each starting from the previous range's
@@ -33,9 +40,10 @@
 //
 // Bound: memory.  Each plane is read once and written once, 8 bytes per
 // element per plane (the status words are 64 bytes a tile): at n = 2^28,
-// 0.641 ms per plane at the H100 SXM's 3.35 TB/s.  Plane 0 is read twice,
-// once to count and once to scatter; the second read of a 16 KB tile
-// mostly hits L2.
+// 0.641 ms per plane at the H100 SXM's 3.35 TB/s; the digit-plane form
+// also reads the digit plane once, 4 bytes per element.  Plane 0 (or the
+// digit plane) is read twice, once to count and once to scatter; the second
+// read of a 16 KB tile mostly hits L2.
 
 #include <cuda_runtime.h>
 
@@ -50,11 +58,12 @@ constexpr int kThreads = gst::kScatterThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kDigits = 16;
 
-template <int NOPS>
+template <int NOPS, bool DIGITS>
 __global__ void __launch_bounds__(kThreads)
-binning(Planes planes, const int* __restrict__ cursors_in,
-        int* __restrict__ cursors_out, unsigned* status, unsigned* next_tile,
-        long long tile_elems, int num_tiles, int shift) {
+binning(Planes planes, const int* __restrict__ digits,
+        const int* __restrict__ cursors_in, int* __restrict__ cursors_out,
+        unsigned* status, unsigned* next_tile, long long tile_elems,
+        int num_tiles, int shift) {
   __shared__ int tile_id;
   __shared__ unsigned bins[kWarps][kDigits];
   __shared__ int cursor[kDigits];
@@ -66,13 +75,21 @@ binning(Planes planes, const int* __restrict__ cursors_in,
 
   const int t = tile_id;
   const long long base = (long long)t * tile_elems;
-  const int4* codes = reinterpret_cast<const int4*>(planes.in[0] + base);
+  const int4* src = reinterpret_cast<const int4*>(
+      (DIGITS ? digits : planes.in[0]) + base);
   for (long long v = tid; v < tile_elems / 4; v += kThreads) {
-    const int4 q = __ldg(codes + v);
-    atomicAdd(&bins[warp][digit_of(q.x, shift)], 1u);
-    atomicAdd(&bins[warp][digit_of(q.y, shift)], 1u);
-    atomicAdd(&bins[warp][digit_of(q.z, shift)], 1u);
-    atomicAdd(&bins[warp][digit_of(q.w, shift)], 1u);
+    const int4 q = __ldg(src + v);
+    if (DIGITS) {
+      atomicAdd(&bins[warp][q.x], 1u);
+      atomicAdd(&bins[warp][q.y], 1u);
+      atomicAdd(&bins[warp][q.z], 1u);
+      atomicAdd(&bins[warp][q.w], 1u);
+    } else {
+      atomicAdd(&bins[warp][digit_of(q.x, shift)], 1u);
+      atomicAdd(&bins[warp][digit_of(q.y, shift)], 1u);
+      atomicAdd(&bins[warp][digit_of(q.z, shift)], 1u);
+      atomicAdd(&bins[warp][digit_of(q.w, shift)], 1u);
+    }
   }
   __syncthreads();
 
@@ -87,17 +104,35 @@ binning(Planes planes, const int* __restrict__ cursors_in,
       cursors_out[tid] = cursors_in[tid] + (int)(exclusive + count);
     }
   }
-  gst::scatter_tile<NOPS>(planes, base, tile_elems, shift, cursor);
+  gst::scatter_tile<NOPS, DIGITS>(planes, base, tile_elems, shift, cursor,
+                                  digits);
+}
+
+template <int NOPS>
+void launch(const Planes& planes, const int* digits, const int* cin,
+            int* cout, unsigned* status, unsigned* next_tile,
+            long long tile_elems, int num_tiles, int shift, cudaStream_t s) {
+  if (digits) {
+    binning<NOPS, true><<<num_tiles, kThreads, 0, s>>>(
+        planes, digits, cin, cout, status, next_tile, tile_elems, num_tiles,
+        shift);
+  } else {
+    binning<NOPS, false><<<num_tiles, kThreads, 0, s>>>(
+        planes, digits, cin, cout, status, next_tile, tile_elems, num_tiles,
+        shift);
+  }
 }
 
 }  // namespace
 
 // Zeroes `scratch` (num_tiles * 16 status words and the tile counter, all
 // uint32), then launches on `stream`; returns the first CUDA error (0 on
-// success).  Planes past num_ops are ignored.
+// success).  Planes past num_ops are ignored; `digits` is null unless the
+// digits come from a plane.
 extern "C" int gst_binning(const void* in0, const void* in1, const void* in2,
                            void* out0, void* out1, void* out2,
-                           const void* cursors_in, void* cursors_out,
+                           const void* digits, const void* cursors_in,
+                           void* cursors_out,
                            void* scratch, int num_ops, int num_tiles,
                            long long tile_elems, int shift, void* stream) {
   if (num_ops < 1 || num_ops > gst::kMaxPlanes || num_tiles <= 0 ||
@@ -119,18 +154,19 @@ extern "C" int gst_binning(const void* in0, const void* in1, const void* in2,
   const int* cin = static_cast<const int*>(cursors_in);
   int* cout = static_cast<int*>(cursors_out);
   unsigned* next_tile = status + (size_t)num_tiles * kDigits;
+  const int* dg = static_cast<const int*>(digits);
   switch (num_ops) {
     case 1:
-      binning<1><<<num_tiles, kThreads, 0, s>>>(
-          planes, cin, cout, status, next_tile, tile_elems, num_tiles, shift);
+      launch<1>(planes, dg, cin, cout, status, next_tile, tile_elems,
+                num_tiles, shift, s);
       break;
     case 2:
-      binning<2><<<num_tiles, kThreads, 0, s>>>(
-          planes, cin, cout, status, next_tile, tile_elems, num_tiles, shift);
+      launch<2>(planes, dg, cin, cout, status, next_tile, tile_elems,
+                num_tiles, shift, s);
       break;
     default:
-      binning<3><<<num_tiles, kThreads, 0, s>>>(
-          planes, cin, cout, status, next_tile, tile_elems, num_tiles, shift);
+      launch<3>(planes, dg, cin, cout, status, next_tile, tile_elems,
+                num_tiles, shift, s);
       break;
   }
   return (int)cudaGetLastError();

@@ -8,12 +8,8 @@
 // others ride along): a stage (j, k), j and k powers of two with j < k,
 // compares every pair (i, i ^ j) with i & j == 0.  The pair sorts
 // ascending where i & k == 0 and descending elsewhere, with the TPU
-// kernels' rule for ties: the lower element keeps itself when
-// (lower < upper) equals "ascending", else takes the upper; the upper keeps
-// itself when (upper < lower) equals "descending", else takes the lower.
-// (So equal keys with different riders both come out as one of them: the
-// callers keep key tuples distinct, as the JAX package's PAD-TIE invariant
-// says, or pass every plane as a key.)
+// kernels' rule for ties (`gst::exchange`, network_common.cuh, shared with
+// mergesweep.cu).
 //
 //   local_stages  — runs a schedule of (j, k) stages, every j below the
 //                   tile of tile_elems elements (a power of two), on each
@@ -38,50 +34,18 @@
 
 #include <cuda_runtime.h>
 
+#include "network_common.cuh"
+
 namespace {
 
-constexpr int kMaxOps = 4;
+using gst::exchange;
+using gst::Ops;
+using gst::pair_low;
+using gst::pow2;
+
+constexpr int kMaxOps = gst::kMaxNetworkOps;
 constexpr int kLocalThreads = 1024;
 constexpr int kGlobalThreads = 256;
-
-struct Ops {
-  const int* in[kMaxOps];
-  int* out[kMaxOps];
-};
-
-// a < b lexicographically over the first num_keys of NOPS values
-template <int NOPS>
-__device__ __forceinline__ bool lex_lt(const int (&a)[NOPS],
-                                       const int (&b)[NOPS], int num_keys) {
-#pragma unroll
-  for (int q = 0; q < NOPS; ++q) {
-    if (q < num_keys) {
-      if (a[q] < b[q]) return true;
-      if (a[q] > b[q]) return false;
-    }
-  }
-  return false;
-}
-
-// The pair's compare-exchange in place on lo[] and hi[].
-template <int NOPS>
-__device__ __forceinline__ void exchange(int (&lo)[NOPS], int (&hi)[NOPS],
-                                         bool ascending, int num_keys) {
-  const bool keep_lo = lex_lt<NOPS>(lo, hi, num_keys) == ascending;
-  const bool keep_hi = lex_lt<NOPS>(hi, lo, num_keys) != ascending;
-#pragma unroll
-  for (int q = 0; q < NOPS; ++q) {
-    const int a = lo[q];
-    const int b = hi[q];
-    lo[q] = keep_lo ? a : b;
-    hi[q] = keep_hi ? b : a;
-  }
-}
-
-// The p-th pair of stride j: i with bit j cleared, and i | j.
-__device__ __forceinline__ long long pair_low(long long p, long long j) {
-  return ((p & ~(j - 1)) << 1) | (p & (j - 1));
-}
 
 template <int NOPS>
 __global__ void __launch_bounds__(kLocalThreads)
@@ -107,19 +71,8 @@ local_stages(Ops ops, const int2* __restrict__ sched, int num_stages,
     const long long k = (unsigned)jk.y;
     for (int p = threadIdx.x; p < half; p += blockDim.x) {
       const int lo = (int)pair_low(p, j);
-      const int hi = lo | j;
-      int a[NOPS], b[NOPS];
-#pragma unroll
-      for (int q = 0; q < NOPS; ++q) {
-        a[q] = smem[q * tile_elems + lo];
-        b[q] = smem[q * tile_elems + hi];
-      }
-      exchange<NOPS>(a, b, ((base + lo) & k) == 0, num_keys);
-#pragma unroll
-      for (int q = 0; q < NOPS; ++q) {
-        smem[q * tile_elems + lo] = a[q];
-        smem[q * tile_elems + hi] = b[q];
-      }
+      gst::exchange_smem<NOPS>(smem, tile_elems, lo, lo | j,
+                               ((base + lo) & k) == 0, num_keys);
     }
     __syncthreads();
   }
@@ -196,8 +149,6 @@ int launch_global(const Ops& ops, long long n, long long j, long long k,
       ops, quads, j, k, num_keys);
   return (int)cudaGetLastError();
 }
-
-bool pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
 
 }  // namespace
 

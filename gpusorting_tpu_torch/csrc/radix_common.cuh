@@ -117,6 +117,9 @@ __device__ __forceinline__ int padded_counter(int e) { return e + (e >> 5); }
 // shared memory) ends advanced past the tile.  The caller fills cursor[]
 // before the call; it is first read after a barrier inside.  tile_elems is
 // a multiple of kScatterItems.  Every thread of the block must call it.
+// The digit is the code's 4 bits at `shift`; with DIGITS it is read from
+// the int32 plane `digits` instead (values in [0, 16), laid out like the
+// planes), and `shift` is unused.
 //
 // The tile is walked in chunks of kScatterChunk elements.  Thread j loads
 // the kScatterItems consecutive elements from j * kScatterItems with
@@ -126,9 +129,10 @@ __device__ __forceinline__ int padded_counter(int e) { return e + (e >> 5); }
 // plane is then shuffled through shared memory into that order and written
 // by consecutive threads to consecutive addresses within each digit's run,
 // so the scattered writes still coalesce.
-template <int NOPS>
+template <int NOPS, bool DIGITS = false>
 __device__ void scatter_tile(const Planes& planes, long long base,
-                             long long tile_elems, int shift, int* cursor) {
+                             long long tile_elems, int shift, int* cursor,
+                             const int* digits = nullptr) {
   constexpr int kThreads = kScatterThreads;
   constexpr int kItems = kScatterItems;
   constexpr int kChunk = kScatterChunk;
@@ -167,9 +171,16 @@ __device__ void scatter_tile(const Planes& planes, long long base,
         v[q][0] = a.x; v[q][1] = a.y; v[q][2] = a.z; v[q][3] = a.w;
         v[q][4] = b.x; v[q][5] = b.y; v[q][6] = b.z; v[q][7] = b.w;
       }
+      if (DIGITS) {
+        const int4* src = reinterpret_cast<const int4*>(digits + base + i0);
+        const int4 a = __ldg(src);
+        const int4 b = __ldg(src + 1);
+        d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
+        d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
+      }
 #pragma unroll
       for (int it = 0; it < kItems; ++it) {
-        d[it] = digit_of(v[0][it], shift);
+        if (!DIGITS) d[it] = digit_of(v[0][it], shift);
         const int e = padded_counter(d[it] * kThreads + tid);
         r[it] = counters[e];
         counters[e] = r[it] + 1;

@@ -10,9 +10,10 @@ Port of `gpusorting_tpu/ops/radix.py`.  The JAX package's variant map
   "emulated_deadlocking"     -> radix16 in adversarial tile-range segments
   "device_radix"             -> reduce-then-scan (ops/rts.py)
   "ffx"                      -> 5-stage FFX pipeline (ops/ffx.py)
-  "splitsweep", "mergesweep" -> their own modules, not ported yet: they
-                                raise NotImplementedError naming their
-                                ROADMAP item and reach no other engine
+  "splitsweep"               -> 16-way splitter partition, then bucket
+                                sorts (ops/splitsweep.py)
+  "mergesweep"               -> segment sorts, then Batcher merge passes
+                                (ops/mergesweep.py)
 
 Every engine sorts the same biased key codes, so outputs are bit-exact
 across engines and with the flat `torch.sort`.
@@ -24,22 +25,11 @@ import torch
 
 from ..core import codec
 from ..core.config import Order
-from . import bitonic, ffx, radix16, rts
+from . import bitonic, ffx, mergesweep, radix16, rts, splitsweep
 from .flat_sort import _flip
 
-_NOT_PORTED = {
-    "splitsweep": "ops/splitsweep.py, ROADMAP.md Queue 1 #8",
-    "mergesweep": "ops/mergesweep.py, ROADMAP.md Queue 1 #9 and Queue 2 "
-                  "#12-#13",
-}
 PORTED = ("device_radix", "ffx", "onesweep", "forward_sweep", "radix16",
-          "emulated_deadlocking")
-
-
-def _require_ported(variant: str) -> None:
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"variant {variant!r} is not ported yet: {_NOT_PORTED[variant]}")
+          "emulated_deadlocking", "splitsweep", "mergesweep")
 
 
 def _tile(tile_rows: int | None, codes: torch.Tensor, pairs: bool) -> int:
@@ -60,6 +50,10 @@ def _sort_codes(codes: torch.Tensor, variant: str, tile_rows: int | None):
         return radix16.sort_codes_radix16(
             codes, tile_rows=tr,
             segments=radix16.adversarial_segments(codes.shape[0], tr))
+    if variant == "splitsweep":
+        return splitsweep.sort_codes_splitsweep(codes, tile_rows=tile_rows)
+    if variant == "mergesweep":
+        return mergesweep.sort_codes(codes)
     return bitonic.sort_codes(codes)
 
 
@@ -67,9 +61,9 @@ def sort_codes_with_rides(codes: torch.Tensor, rides: tuple, variant: str,
                           tile_rows: int | None = None):
     """Stable sort of biased int32 codes with int32 ride planes (1 ride = a
     32-bit payload, 2 = a 64-bit payload's lo/hi) through the named engine.
-    Returns (sorted_codes, *permuted_rides).  "ffx" and the network ignore
-    `tile_rows`."""
-    _require_ported(variant)
+    Returns (sorted_codes, *permuted_rides).  "ffx", "mergesweep" and the
+    network ignore `tile_rows`; "splitsweep" defaults it to the keys' radix
+    tile, as in JAX."""
     if variant == "device_radix":
         return rts._sort_rts((codes,) + rides,
                              _tile(tile_rows, codes, pairs=True))
@@ -83,6 +77,11 @@ def sort_codes_with_rides(codes: torch.Tensor, rides: tuple, variant: str,
         return radix16._sort_radix16(
             (codes,) + rides, tr,
             segments=radix16.adversarial_segments(codes.shape[0], tr))
+    if variant == "splitsweep":
+        return splitsweep.sort_stable_with_splitsweep(codes, *rides,
+                                                      tile_rows=tile_rows)
+    if variant == "mergesweep":
+        return mergesweep.sort_codes_stable_with(codes, *rides)
     return bitonic.sort_codes_stable_with(codes, *rides)
 
 
@@ -92,7 +91,6 @@ def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
     """Key sort through the named engine; `tile_rows` overrides the tuning
     row's radix tile ("ffx" keeps its fixed tile, the network sizes its
     own)."""
-    _require_ported(variant)
     sc = _sort_codes(codec.encode_biased(keys), variant, tile_rows)
     return codec.decode_biased(_flip(sc, order), codec.key_type_of(keys))
 
@@ -102,7 +100,6 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
                tile_rows: int | None = None):
     """Stable pair sort through the named engine; a 64-bit payload rides as
     lo/hi int32 planes."""
-    _require_ported(variant)
     bits = codec.payload_to_bits(values)
     codes = codec.encode_biased(keys)
     if bits.dtype == torch.int64:
@@ -121,7 +118,6 @@ def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                     tile_rows: int | None = None):
     """Stable pair sort with a two-plane (lo, hi) 64-bit payload through
     the named engine (3 planes; the network adds its index plane)."""
-    _require_ported(variant)
     sc, slo, shi = sort_codes_with_rides(
         codec.encode_biased(keys), (lo.view(torch.int32),
                                     hi.view(torch.int32)),

@@ -27,11 +27,18 @@ carriers of `core.codec`; rides are int32 bit carriers.
                EmulatedDeadlocking analog, bit-exact with the fused run.
                Segmented runs run every pass, as JAX's do.
 
+  digit plane — `binning_pass(..., digits=)` takes each element's digit
+               from an int32 plane instead of its code: the counterpart of
+               `_build_pass(external_sp=True, out_rows=...)`, splitsweep's
+               16-bucket partition (its bucket ids in place of digits, its
+               outputs 16 row-aligned regions, more rows than the input).
+               `flush_write` has no counterpart: it plain-wrote the partial
+               row of a region no other stream shared, and here every
+               element is written at its own address, so no row is shared.
+
 Not ported: the TPU's within-row bitonic pack, run tables, MXU placement
-and their `GST_RADIX16_*` switches (mechanism, not contract); the
-`external_sp`, `flush_write` and `out_rows` options of `_build_pass`, which
-serve splitsweep and come with it.  The tile may be any number of rows
-(JAX wants a multiple of 128, a TPU placement rule).
+and their `GST_RADIX16_*` switches (mechanism, not contract).  The tile may
+be any number of rows (JAX wants a multiple of 128, a TPU placement rule).
 """
 
 from __future__ import annotations
@@ -66,8 +73,13 @@ def _bases_all_passes(codes: torch.Tensor):
 # ---- the binning pass -----------------------------------------------------
 
 
-def _check_pass(planes, cursors, shift, tile_rows, out):
+def _check_pass(planes, cursors, shift, tile_rows, out, digits):
     kernels.check_shift(shift)
+    if digits is not None and (digits.dtype != torch.int32
+                               or digits.shape != planes[0].shape):
+        raise ValueError(f"binning_pass: digits must be int32 shaped like "
+                         f"the planes {tuple(planes[0].shape)}, got "
+                         f"{digits.dtype}{tuple(digits.shape)}")
     if not 1 <= len(planes) <= MAX_PLANES:
         raise ValueError(f"binning_pass takes 1-{MAX_PLANES} planes, got "
                          f"{len(planes)}")
@@ -80,15 +92,23 @@ def _check_pass(planes, cursors, shift, tile_rows, out):
     rows = planes[0].shape[0]
     if tile_rows < 1 or rows % tile_rows or rows == 0:
         raise ValueError(f"{rows} rows are not whole tiles of {tile_rows}")
+    if digits is not None:
+        # the kernel indexes its bins by the digit: one read of the plane
+        # and one synchronisation keep a bad plane from reaching it
+        lo, hi = torch.aminmax(digits)
+        if bool((lo < 0) | (hi >= NBUCKETS)):
+            raise ValueError(f"binning_pass: digits must lie in [0, "
+                             f"{NBUCKETS}), got [{int(lo)}, {int(hi)}]")
 
 
 def binning_pass_plain(planes, cursors: torch.Tensor, shift: int,
-                       tile_rows: int, out=None):
+                       tile_rows: int, out=None, digits=None):
     """Plain version: a stable argsort of the digit; the j-th element of
     digit d goes to cursors[d] + j.  Returns (outs, cursors_out)."""
-    _check_pass(planes, cursors, shift, tile_rows, out)
+    _check_pass(planes, cursors, shift, tile_rows, out, digits)
     x = planes[0].reshape(-1)
-    d = kernels.digits(x, shift)
+    d = (kernels.digits(x, shift) if digits is None
+         else digits.reshape(-1).to(torch.int64))
     order = torch.argsort(d, stable=True)
     sd = d[order]
     counts = torch.bincount(d, minlength=NBUCKETS)
@@ -106,7 +126,7 @@ def binning_pass_plain(planes, cursors: torch.Tensor, shift: int,
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     fn = lib.gst_binning
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
                                            ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -114,7 +134,7 @@ def _library() -> ctypes.CDLL:
 
 
 def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
-                 out=None):
+                 out=None, digits=None):
     """One stable pass of the 4-bit digit at `shift` over 1-3 (rows, 128)
     int32 planes (plane 0 the biased codes) of whole tiles: the j-th
     element of digit d goes to cursors[d] + j of every output plane.
@@ -122,13 +142,17 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
 
     `out` (default: new planes shaped like the inputs) lets the tile ranges
     of one pass write into the same buffers, each from the last range's
-    cursors_out.  CUDA planes launch `csrc/binning.cu` once (or raise);
-    CPU planes take `binning_pass_plain`."""
-    _check_pass(planes, cursors, shift, tile_rows, out)
+    cursors_out; it may have more rows than the input.  `digits`, an int32
+    plane shaped like the inputs with values in [0, 16), gives each
+    element's digit in place of its code's (`shift` is then unused; a
+    value out of range raises ValueError, on either device).  CUDA planes launch `csrc/binning.cu`
+    once (or raise); CPU planes take `binning_pass_plain`."""
+    _check_pass(planes, cursors, shift, tile_rows, out, digits)
     if planes[0].device.type == "cpu":
         for p in list(planes) + list(out or []):
             kernels.check_int32("binning_pass", p)
-        return binning_pass_plain(planes, cursors, shift, tile_rows, out)
+        return binning_pass_plain(planes, cursors, shift, tile_rows, out,
+                                  digits)
     dev = planes[0].device
     if dev.type != "cuda":
         raise ValueError(f"binning_pass: unsupported device {dev}")
@@ -138,6 +162,9 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
                     ref="planes[0]")
     _nvcc.check("binning_pass", "cursors", cursors, (NBUCKETS,), dev,
                 ref="planes[0]")
+    if digits is not None:
+        _nvcc.check("binning_pass", "digits", digits, (rows, LANES), dev,
+                    ref="planes[0]")
     if rows * LANES >= 1 << 30:
         raise ValueError(f"binning_pass: {rows * LANES} elements in one "
                          "launch exceed the 30-bit counts of its status "
@@ -158,7 +185,9 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
     spare = [0] * (MAX_PLANES - len(planes))
     _nvcc.launch("binning_pass", _library().gst_binning,
                  *[p.data_ptr() for p in planes], *spare,
-                 *[o.data_ptr() for o in out], *spare, cursors.data_ptr(),
+                 *[o.data_ptr() for o in out], *spare,
+                 None if digits is None else digits.data_ptr(),
+                 cursors.data_ptr(),
                  cursors_out.data_ptr(), scratch.data_ptr(), len(planes),
                  num_tiles, tile_rows * LANES, shift, device=dev)
     binning_pass.launches += 1

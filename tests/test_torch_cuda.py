@@ -1,7 +1,8 @@
 """Tests of gpusorting_tpu_torch that need an NVIDIA card: each hand-written
 kernel (relocate, tile_histogram4, exclusive_scan, downsweep,
-global_histogram, binning_pass, local_stages, global_stage, compact_ops,
-expand_ops) against its plain version, their launch checks, the engines
+global_histogram, binning_pass and its digit-plane form, local_stages,
+global_stage, compact_ops, expand_ops, merge_tail, hyper_stage) against its
+plain version, their launch checks, the engines
 and public entry points through the kernels against flat torch.sort, and
 the segmented sort against the composite oracle.
 
@@ -19,8 +20,9 @@ import torch
 import gpusorting_tpu_torch as gstt
 from gpusorting_tpu_torch.core import codec, config, prng
 from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels,
-                                      radix, radix16, relocate,
-                                      rangesweep as rs, rts, stitch)
+                                      mergesweep, radix, radix16, relocate,
+                                      rangesweep as rs, rts, splitsweep,
+                                      stitch)
 from gpusorting_tpu_torch.segsort import splitsort
 from gpusorting_tpu_torch.utils import validate
 
@@ -267,8 +269,25 @@ def test_public_pallas_route_on_card(cuda):
         s = cls(gstt.SortConfig(backend=gstt.Backend.PALLAS))
         assert s.device.type == "cuda"
         assert s.validate_against_oracle(100_003, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gstt.sort(keys, backend=gstt.Backend.PALLAS, variant="splitsweep")
+    # the last two variants (they raised NotImplementedError until they
+    # were ported) reach their own kernels: splitsweep its digit-plane
+    # binning pass and compact, mergesweep (in 2^15-key segments) its tail
+    counts = (radix16.binning_pass.launches, stitch.compact_ops.launches,
+              mergesweep.merge_tail.launches)
+    gstt.sort(keys, backend=gstt.Backend.PALLAS, variant="splitsweep")
+    config.set_routing_override(config.RoutingParameters(
+        mergesweep_seg_elems=1 << 15))
+    try:
+        got = gstt.sort(keys, backend=gstt.Backend.PALLAS,
+                        variant="mergesweep")
+    finally:
+        config.clear_routing_override()
+    assert torch.equal(got.view(torch.int32), gstt.sort(
+        keys, backend=gstt.Backend.XLA).view(torch.int32))
+    torch.cuda.synchronize()
+    assert (radix16.binning_pass.launches - counts[0],
+            stitch.compact_ops.launches - counts[1],
+            mergesweep.merge_tail.launches - counts[2]) == (1, 1, 4)
 
 
 @pytest.mark.parametrize("variant", radix.PORTED)
@@ -580,3 +599,192 @@ def test_segsort_classes_on_card(cuda):
     assert [c["B"] for c in cp["classes"]["padded"]] == [16384]
     assert cp["classes"]["tail"] is not None
     _check_segsort(offs, S, total, keys, "classes", 3)
+
+
+# ---- mergesweep and splitsweep ------------------------------------------------
+
+
+def _net_planes(num_ops, n, seed, dev):
+    """Plane 0 with many ties, plane 1 distinct (so (0, 1) key tuples are
+    distinct), the others random."""
+    g = torch.Generator().manual_seed(seed)
+    out = [torch.randint(-20, 20, (n,), generator=g, dtype=torch.int32),
+           torch.randperm(n, generator=g).to(torch.int32)]
+    out += [torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                          dtype=torch.int32) for _ in range(2)]
+    return [p.view(-1, 128).to(dev) for p in out[:num_ops]]
+
+
+@pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (3, 2), (4, 2)])
+def test_merge_kernels_match_plain(cuda, num_ops, num_keys):
+    """merge_tail with k below, at twice and far above the tile, and
+    hyper_stage as one trip and as the split trips of the pass's high
+    strides, each against its plain version, in place."""
+    n = 1 << 20
+    tr = bitonic.network_tile_rows(cuda, num_ops)
+    te = tr * 128
+    planes = _net_planes(num_ops, n, num_ops, cuda)
+
+    def same(fn, plain, *args):
+        got = fn([p.clone() for p in planes], *args)
+        want = plain([p.clone() for p in planes], *args)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+    before = (mergesweep.merge_tail.launches, mergesweep.hyper_stage.launches)
+    for k in (te // 4, 2 * te, n):
+        same(mergesweep.merge_tail, mergesweep.merge_tail_plain, k, tr,
+             num_keys)
+    # a 128-element budget (4 stages a trip) splits the 2^20 pass's high
+    # strides into two trips
+    trips = mergesweep.hyper_trips(n, te, 128)
+    assert len(trips) == 2
+    same(mergesweep.hyper_stage, mergesweep.hyper_stage_plain, n, n // 2, te,
+         num_keys, min(te, te * te // n))
+    for j_hi, j_lo, cols in trips:
+        same(mergesweep.hyper_stage, mergesweep.hyper_stage_plain, n, j_hi,
+             j_lo, num_keys, cols)
+    # the split trips compose to the whole run of strides
+    split = [p.clone() for p in planes]
+    for j_hi, j_lo, cols in trips:
+        mergesweep.hyper_stage(split, n, j_hi, j_lo, num_keys, cols)
+    want = mergesweep.hyper_stage_plain([p.clone() for p in planes], n,
+                                        n // 2, te, num_keys)
+    for g, w in zip(split, want):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+    assert (mergesweep.merge_tail.launches - before[0],
+            mergesweep.hyper_stage.launches - before[1]) == (
+        3, 1 + 2 * len(trips))
+
+
+@pytest.mark.parametrize("skew", [False, True])
+@pytest.mark.parametrize("num_ops", [1, 2, 3])
+def test_binning_digit_plane_matches_plain(cuda, num_ops, skew):
+    """The digit-plane pass into 16 row-aligned regions (more output rows
+    than input rows), uniform and skewed bucket planes, with cursors_out."""
+    rows, tile_rows, cap_rows = 4096, 32, 400
+    g = torch.Generator().manual_seed(num_ops)
+    planes = [torch.randint(-2**31, 2**31 - 1, (rows, 128), generator=g,
+                            dtype=torch.int32).to(cuda)
+              for _ in range(num_ops)]
+    if skew:       # about 7/8 of the elements in bucket 3
+        r = torch.randint(0, 128, (rows, 128), generator=g)
+        digits = torch.where(r < 112, 3, r % 16).to(torch.int32)
+        cap_rows = 3700
+    else:
+        digits = torch.randint(0, 16, (rows, 128), generator=g,
+                               dtype=torch.int32)
+    digits = digits.to(cuda)
+    bases = torch.arange(16, dtype=torch.int32, device=cuda) * (cap_rows * 128)
+
+    def run(fn):
+        out = [torch.zeros(16 * cap_rows, 128, dtype=torch.int32,
+                           device=cuda) for _ in planes]
+        return fn(planes, bases, 0, tile_rows, out, digits=digits)
+
+    before = radix16.binning_pass.launches
+    got, cur = run(radix16.binning_pass)
+    want, wcur = run(radix16.binning_pass_plain)
+    assert torch.equal(cur, wcur)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert radix16.binning_pass.launches - before == 1
+
+
+@pytest.mark.parametrize("hyper", [False, True], ids=["off", "on"])
+def test_mergesweep_engine_on_card(cuda, monkeypatch, hyper):
+    monkeypatch.setattr(mergesweep, "_USE_HYPER", hyper)
+    n = 3_000_001
+    k = _codes("rand", n, 5, cuda)
+    v = prng.hybrid_taus_bits(n, 6, device=cuda).view(torch.int32)
+    want = torch.sort(k, stable=True)
+    before = (bitonic.global_stage.launches, mergesweep.hyper_stage.launches,
+              mergesweep.merge_tail.launches)
+    assert torch.equal(mergesweep.sort_codes(k, seg_elems=1 << 16),
+                       want.values)
+    sk, sv, sw = mergesweep.sort_codes_stable_with(k & 0xFF00FF, v, v ^ 7,
+                                                   seg_elems=1 << 16)
+    w8 = torch.sort(k & 0xFF00FF, stable=True)
+    assert torch.equal(sk, w8.values) and torch.equal(sv, v[w8.indices])
+    assert torch.equal(sw, (v ^ 7)[w8.indices])
+    torch.cuda.synchronize()
+    g, h, t = (a - b for a, b in zip(
+        (bitonic.global_stage.launches, mergesweep.hyper_stage.launches,
+         mergesweep.merge_tail.launches), before))
+    assert t == 12 and (h > 0, g > 0) == (hyper, not hyper)
+
+
+def test_splitsweep_engine_and_fallback_on_card(cuda):
+    n = 2_000_003
+    k = _codes("dup16", n, 7, cuda) ^ _codes("rand", n, 8, cuda) & 0xFFF0
+    v = prng.hybrid_taus_bits(n, 9, device=cuda).view(torch.int32)
+    want = torch.sort(k, stable=True)
+    before = (radix16.binning_pass.launches, stitch.compact_ops.launches)
+    assert torch.equal(splitsweep.sort_codes_splitsweep(k), want.values)
+    sk, sv, sw = splitsweep.sort_stable_with_splitsweep(k, v, v ^ 3)
+    assert torch.equal(sk, want.values) and torch.equal(sv, v[want.indices])
+    assert torch.equal(sw, (v ^ 3)[want.indices])
+    torch.cuda.synchronize()
+    assert (radix16.binning_pass.launches - before[0],
+            stitch.compact_ops.launches - before[1]) == (2, 2)
+    # slack 0.5 leaves each region half its share: the exact fallback
+    before = radix16.binning_pass.launches
+    assert torch.equal(splitsweep.sort_codes_splitsweep(k, slack=0.5),
+                       want.values)
+    sk, sv = splitsweep.sort_pairs_splitsweep(k, v, slack=0.5)
+    assert torch.equal(sk, want.values) and torch.equal(sv, v[want.indices])
+    assert radix16.binning_pass.launches == before
+
+
+@pytest.mark.parametrize("rides", [0, 1, 2])
+def test_splitsweep_kernels_at_their_shapes_match_plain(cuda, monkeypatch,
+                                                        rides):
+    """The digit-plane pass and the compact of one splitsweep call (1-3
+    planes), recorded and answered by their plain versions, then each
+    kernel held against its plain version on the same operands: compact
+    over 16 * cap_rows * 128 slots with a prefix mask per region."""
+    n = 1_000_003
+    k = _codes("rand", n, 11, cuda)
+    vs = [prng.hybrid_taus_bits(n, 12 + i, device=cuda).view(torch.int32)
+          for i in range(rides)]
+    calls = []
+
+    def rec_binning(planes, cursors, shift, tile_rows, out=None,
+                    digits=None):
+        calls.append(("binning", (tuple(planes), cursors, shift, tile_rows,
+                                  out[0].shape[0], digits)))
+        return radix16.binning_pass_plain(planes, cursors, shift, tile_rows,
+                                          out, digits)
+
+    def rec_compact(planes, mask):
+        calls.append(("compact", (tuple(planes), mask)))
+        return stitch.compact_plain(tuple(planes), mask)
+
+    real_binning, real_compact = radix16.binning_pass, stitch.compact_ops
+    monkeypatch.setattr(radix16, "binning_pass", rec_binning)
+    monkeypatch.setattr(stitch, "compact_ops", rec_compact)
+    out = splitsweep.sort_stable_with_splitsweep(k, *vs)
+    monkeypatch.undo()
+    want = torch.sort(k, stable=True)
+    assert torch.equal(out[0], want.values)
+    assert [c for c, _ in calls] == ["binning", "compact"]
+
+    (planes, cursors, shift, tile_rows, out_rows, digits) = calls[0][1]
+    assert len(planes) == 1 + rides and out_rows > planes[0].shape[0]
+    padded = planes[0].numel()
+
+    def run(fn):
+        o = [torch.zeros(out_rows, 128, dtype=torch.int32, device=cuda)
+             for _ in planes]
+        outs, cur = fn(list(planes), cursors, shift, tile_rows, o,
+                       digits=digits)
+        return list(outs) + [cur]
+    for a, b in zip(run(real_binning), run(radix16.binning_pass_plain)):
+        assert torch.equal(a, b)
+    planes, mask = calls[1][1]
+    (packed, cnt), (wpacked, wcnt) = (real_compact(planes, mask),
+                                      stitch.compact_plain(planes, mask))
+    assert int(cnt) == int(wcnt) == padded
+    for a, b in zip(packed, wpacked):
+        assert torch.equal(a[:padded], b[:padded])

@@ -31,8 +31,9 @@ from gpusorting_tpu.ops import radix16 as jradix16
 from gpusorting_tpu.ops import rts as jrts
 from gpusorting_tpu_torch import ops
 from gpusorting_tpu_torch.core import codec, config
-from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels, radix,
-                                      radix16, rts)
+from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels,
+                                      mergesweep, radix, radix16, rts,
+                                      splitsweep)
 
 TILE = 128
 
@@ -70,9 +71,11 @@ def _one_torch_thread():
 
 @pytest.fixture
 def small_ffx_tile():
-    """The port's FFX engine at 2-row tiles, for the cases held against the
-    JAX package's flat oracle (the tile does not change the output)."""
-    config.set_routing_override(config.RoutingParameters(ffx_tile_rows=2))
+    """The port's FFX engine at 2-row tiles and mergesweep at 1024-key
+    segments (so its merge passes run), for the cases held against the JAX
+    package's flat oracle (neither changes the output)."""
+    config.set_routing_override(config.RoutingParameters(
+        ffx_tile_rows=2, mergesweep_seg_elems=1024))
     yield
     config.clear_routing_override()
 
@@ -391,8 +394,17 @@ def _boom(*a, **k):
     raise AssertionError("another engine was reached")
 
 
+# the engine functions of the last two variants, as the JAX router maps them
+_OWN = {"splitsweep": (splitsweep, ("sort_codes_splitsweep",
+                                    "sort_stable_with_splitsweep")),
+        "mergesweep": (mergesweep, ("sort_codes", "sort_codes_stable_with"))}
+
+
 @pytest.mark.parametrize("variant", ["splitsweep", "mergesweep"])
 def test_unported_variants_raise_and_reach_no_engine(monkeypatch, variant):
+    """The two variants that raised NotImplementedError until they were
+    ported: every entry point now reaches the variant's own engine, keys
+    and rides alike, and no other engine (each patched to fail)."""
     for mod, name in ((rts, "_sort_rts"), (ffx, "_sort_ffx"),
                       (radix16, "_sort_radix16"),
                       (bitonic, "sort_network_i32"),
@@ -402,19 +414,37 @@ def test_unported_variants_raise_and_reach_no_engine(monkeypatch, variant):
                       (flat_sort, "sort_batched"),
                       (ops.rangesweep, "sort_codes_rangesweep")):
         monkeypatch.setattr(mod, name, _boom)
-    k = torch.zeros(300, dtype=torch.uint32)
-    pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
-    for call in (lambda: gstt.sort(k, **pal),
-                 lambda: gstt.sort_pairs(k, k, **pal),
-                 lambda: gstt.sort_pairs(k, k.view(torch.int32).long(),
-                                         **pal),
-                 lambda: gstt.sort_pairs_wide(k, k, k, **pal),
-                 lambda: gstt.argsort(k, **pal),
-                 lambda: gstt.sort_batched(k.view(3, 100), **pal),
-                 lambda: gstt.sort_batched(k.view(3, 100), k.view(3, 100),
-                                           **pal)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    other = "mergesweep" if variant == "splitsweep" else "splitsweep"
+    for name in _OWN[other][1]:
+        monkeypatch.setattr(_OWN[other][0], name, _boom)
+    seen = []
+    mod, names = _OWN[variant]
+    for name in names:
+        def spy(*a, _real=getattr(mod, name), _name=name, **kw):
+            seen.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, name, spy)
+    keys = _keys("uint32", 300, seed=3)
+    k = torch.from_numpy(keys)
+    pal = {"backend": gstt.Backend.PALLAS, "variant": variant,
+           "tile_rows": 1}
+    np.testing.assert_array_equal(gstt.sort(k, **pal).numpy(), np.sort(keys))
+    perm = np.argsort(keys, kind="stable")
+    _, sv = gstt.sort_pairs(k, k, **pal)
+    np.testing.assert_array_equal(sv.numpy(), keys[perm])
+    _, sv = gstt.sort_pairs(k, k.view(torch.int32).long(), **pal)
+    np.testing.assert_array_equal(sv.numpy(), keys.view(np.int32)[perm])
+    _, slo, shi = gstt.sort_pairs_wide(k, k, k, **pal)
+    np.testing.assert_array_equal(shi.numpy(), keys[perm])
+    np.testing.assert_array_equal(gstt.argsort(k, **pal).numpy(), perm)
+    np.testing.assert_array_equal(
+        gstt.sort_batched(k.view(3, 100), **pal).numpy(),
+        np.sort(keys.reshape(3, 100), axis=1))
+    _, sv = gstt.sort_batched(k.view(3, 100), k.view(3, 100), **pal)
+    np.testing.assert_array_equal(sv.numpy(),
+                                  np.sort(keys.reshape(3, 100), axis=1))
+    assert seen == [names[0]] + [names[1]] * 4 + [names[0]] * 3 + [
+        names[1]] * 3
 
 
 # each variant's engine core, as the JAX router maps it (an unknown name

@@ -196,12 +196,19 @@ def test_public_errors():
     with pytest.raises(TypeError):
         gstt.sort_pairs_wide(k, k.view(torch.int32).long(),
                              k.view(torch.int32).long())
-    pal = {"backend": gstt.Backend.PALLAS, "variant": "splitsweep"}
-    for call in (lambda: gstt.sort(k, **pal),
-                 lambda: gstt.argsort(k, **pal),
-                 lambda: gstt.sort_batched(k.view(2, 4), **pal)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # the last two PALLAS variants sort (they raised NotImplementedError
+    # until they were ported) and keep the shape errors
+    for variant in ("splitsweep", "mergesweep"):
+        pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
+        assert torch.equal(gstt.sort(k, **pal), k)
+        assert torch.equal(gstt.argsort(k, **pal),
+                           torch.arange(8, dtype=torch.int32))
+        assert torch.equal(gstt.sort_batched(k.view(2, 4), **pal),
+                           k.view(2, 4))
+        with pytest.raises(ValueError):
+            gstt.sort(k.view(2, 4), **pal)
+        with pytest.raises(ValueError):
+            gstt.sort_pairs(k, torch.zeros(7, dtype=torch.uint32), **pal)
 
 
 # ---- routing ---------------------------------------------------------------
