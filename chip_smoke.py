@@ -100,7 +100,26 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      switch on) beside radix16, device_radix and flat torch.sort;
      mergesweep's keys and pairs at segment lengths 2^20 .. 2^27 with the
      switch off and on, and at 2^28 (one segment: the flat sort); each new
-     kernel beside its bound and its plain version.
+     kernel beside its bound and its plain version;
+ 16. the distributed sort's masking kernel (csrc/exchange_mask.cu) against
+     its plain version at one rank's receive buffer in an 8-GPU sort of
+     2^30 pairs (D = 8 blocks of 2^25), on 2 and 3 operands, under uniform
+     (near 2^24), zero, full, truncated (> cap) and mixed counts, as whole
+     blocks, 4 chunk windows and single sources, bit for bit; then timed
+     beside its bound (the tail written once), its plain version and
+     masked_fill_;
+ 17. the distributed sort at one NCCL rank in this process at n = 2^28
+     through gstt.distributed_sort on both transports: u32 keys, u32 pairs,
+     f32 keys with specials, all-equal pairs, max-code keys (the default
+     ladder), and a fixed 2^20 cap that must report its overflow, and
+     distributed_sort_gather's retry; each held bit for bit against flat
+     stable torch.sort (prefix) with the sentinel and zero tail, and the
+     masking launches asserted (the chunk count, or D); then times end to
+     end beside the flat sort, and per step (sample and splitters, cell
+     counts, local sort, pack, exchange, both merge forms);
+ 18. four gloo ranks on the one card (2^26 global u32 pairs, the
+     collective exchange on CUDA tensors), each rank's blocks held bit for
+     bit against the same group's CPU run; remote_dma's refusal recorded.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -110,10 +129,12 @@ them.  The line before the last lists the kernels; the last line is
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N = 1 << 28
@@ -138,6 +159,42 @@ def _card() -> str:
     return out.strip().splitlines()[0]
 
 
+def _phase18_rank(rank: int, world: int, n: int, seed: int) -> dict:
+    """One of phase 18's ranks on cuda:0: its shard of n u32 pairs sorted
+    by the gloo group on the CPU and on the card, the blocks compared."""
+    import torch
+
+    import gpusorting_tpu_torch as gstt
+    from gpusorting_tpu_torch.core import prng
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    n_local = n // world
+    sl = slice(rank * n_local, (rank + 1) * n_local)
+    keys = prng.make_test_keys(n, seed, device=dev).view(torch.int32)[sl]
+    keys = keys.view(torch.uint32)
+    vals = torch.arange(n, dtype=torch.int32, device=dev)[sl]
+    t0 = time.perf_counter()
+    cpu = gstt.distributed_sort(keys.cpu(), vals.cpu())
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = gstt.distributed_sort(keys, vals)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    same = all(
+        torch.equal(cpu[f].view(torch.int32), card[f].view(torch.int32).cpu())
+        for f in ("codes", "global_index", "payload_bits")) and all(
+        int(cpu[f]) == int(card[f]) for f in ("count", "overflow", "cap"))
+    try:
+        gstt.distributed_sort(keys, vals, exchange="remote_dma")
+        remote_dma = "ran"
+    except ValueError as e:
+        remote_dma = f"ValueError: {e}"
+    return {"bit_exact": same, "count": int(card["count"]),
+            "cap": card["cap"], "cpu_s": cpu_s, "card_s": card_s,
+            "remote_dma": remote_dma}
+
+
 def main() -> int:
     import torch
 
@@ -147,6 +204,7 @@ def main() -> int:
         return 2
 
     import numpy as np
+    import torch.distributed as dist
 
     import gpusorting_tpu_torch as gstt
     from gpusorting_tpu_torch.core import codec, prng
@@ -154,6 +212,9 @@ def main() -> int:
                                           kernels, mergesweep, radix16,
                                           relocate, rangesweep as rs, rts,
                                           splitsweep, stitch)
+    from gpusorting_tpu_torch.parallel import dist_sort
+    from gpusorting_tpu_torch.parallel import remote_exchange as rx
+    from gpusorting_tpu_torch.parallel.launch import run_ranks
     from gpusorting_tpu_torch.segsort import splitsort
     from gpusorting_tpu_torch.utils import timing, validate
 
@@ -183,7 +244,7 @@ def main() -> int:
     # ---- phase 0: build every kernel, one nvcc per source, all at once ----
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
-               bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE)
+               bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE, rx.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -1784,6 +1845,285 @@ def main() -> int:
     del x, work, bucket, payload
     free()
 
+    # ---- phase 16: the exchange's masking kernel against its plain version
+    # at the receive buffer of one rank in an 8-GPU sort of 2^30 pairs
+    # (configs[4]): D = 8 blocks of the 2^25 rung
+    d8, cap8 = 8, 1 << 25
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def rc_of(kind):
+        if kind == "uniform":      # near the mean cell, 2^24
+            return (1 << 24) + torch.randint(-4096, 4096, (d8,), generator=gen,
+                                             device=dev, dtype=torch.int32)
+        if kind == "mix":
+            return torch.tensor([0, 1, cap8 // 3, cap8 - 1, cap8, cap8 + 5,
+                                 1 << 24, 12345], dtype=torch.int32,
+                                device=dev)
+        fill = {"zero": 0, "full": cap8, "truncated": cap8 + 999}[kind]
+        return torch.full((d8,), fill, dtype=torch.int32, device=dev)
+
+    mask_err = 0
+    mask_times = {}
+    forms = {"whole": [(0, cap8, None)],
+             "chunks": [(c * cap8 // 4, (c + 1) * cap8 // 4, None)
+                        for c in range(4)],
+             "sources": [(0, cap8, range(s, s + 1)) for s in range(d8)]}
+    for num_ops in (2, 3):
+        fills = (codec.SENTINEL, -1, 0)[:num_ops]
+        base = [torch.randint(-2**31, 2**31 - 1, (d8, cap8), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(num_ops)]
+        for kind in ("uniform", "zero", "full", "truncated", "mix"):
+            rc = rc_of(kind)
+            want = [b.clone() for b in base]
+            rx.mask_arrivals_plain(want, rc, fills)
+            for form, calls in forms.items():
+                got = [b.clone() for b in base]
+                before = rx.mask_arrivals.launches
+                for a, b, src in calls:
+                    rx.mask_arrivals([g[:, a:b] for g in got], rc, fills,
+                                     col0=a, sources=src)
+                torch.cuda.synchronize()
+                _require(rx.mask_arrivals.launches - before == len(calls),
+                         f"mask_arrivals {form}: launches")
+                for g, w in zip(got, want):
+                    mask_err = max(mask_err, int(
+                        (g.to(torch.int64) - w).abs().max()))
+                    _require(torch.equal(g, w), f"mask_arrivals {num_ops} "
+                             f"operands, {kind} counts, {form} != plain")
+                del got
+            del want
+            emit(phase="kernel_vs_plain", kernel="mask_arrivals", d=d8,
+                 cap=cap8, operands=num_ops, counts=kind,
+                 forms=list(forms), bit_exact=True)
+        rc = rc_of("uniform")
+        tail = int((cap8 - rc.clamp(max=cap8)).sum())
+        pos8 = torch.arange(cap8, device=dev)
+
+        def library():
+            masked = pos8[None, :] >= rc[:, None]
+            for w, f in zip(base, fills):
+                w.masked_fill_(masked, f)
+
+        # bytes: the tail written once (the kernel reads D counts); for
+        # reference the read-and-write form moves every slot twice
+        mask_times[num_ops] = dict(
+            ms=median_ms(lambda: rx.mask_arrivals(base, rc, fills)),
+            plain_ms=median_ms(lambda: rx.mask_arrivals_plain(base, rc,
+                                                              fills),
+                               iters=3),
+            library_ms=median_ms(library),
+            bound_ms=4 * tail * num_ops / bw * 1e3, bound_by="bytes",
+            read_write_bound_ms=8 * d8 * cap8 * num_ops / bw * 1e3,
+            tail_slots=tail)
+        emit(phase="per_kernel", kernel="mask_arrivals", d=d8, cap=cap8,
+             operands=num_ops, counts="uniform",
+             library="masked_fill_ per plane, the mask built in the call",
+             **mask_times[num_ops])
+        del base
+        free()
+
+    # ---- phase 17: the distributed sort at one NCCL rank, n = 2^28 -------
+    rendezvous = tempfile.TemporaryDirectory()
+    dist.init_process_group(
+        "nccl", init_method=f"file://{rendezvous.name}/rendezvous", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300), device_id=dev)
+    u32 = prng.make_test_keys(N, SEED + 17, torch.uint32, device=dev)
+    vals17 = torch.arange(N, dtype=torch.int32, device=dev).view(torch.uint32)
+    maxc = u32.clone()
+    maxc.view(torch.int32)[::5] = -1
+    cases17 = (("u32_keys", u32, None), ("u32_pairs", u32, vals17),
+               ("f32_keys", f32_keys(), None),
+               ("all_equal_pairs", torch.full((N,), 0x1234ABCD,
+                                              dtype=torch.int32,
+                                              device=dev).view(torch.uint32),
+                vals17),
+               ("max_code_keys", maxc, None))
+
+    def check17(name, keys, values, res, valid, overflow):
+        want, perm = torch.sort(codec.encode_biased(keys), stable=True)
+        got = codec.bias(res["codes"])
+        _require(int(res["count"]) == valid, f"{name}: count "
+                 f"{int(res['count'])} != {valid}")
+        _require(int(res["overflow"]) == overflow, f"{name}: overflow "
+                 f"{int(res['overflow'])} != {overflow}")
+        _require(torch.equal(got[:valid], want[:valid]),
+                 f"{name}: codes != flat torch.sort")
+        _require(bool((got[valid:] == codec.SENTINEL).all()),
+                 f"{name}: code tail is not the sentinel")
+        gidx = res["global_index"].view(torch.int32)
+        _require(torch.equal(gidx[:valid], perm[:valid].to(torch.int32))
+                 and bool((gidx[valid:] == -1).all()),
+                 f"{name}: global index != the stable permutation")
+        if values is not None:
+            pb = res["payload_bits"].view(torch.int32)
+            _require(torch.equal(pb[:valid], values.view(torch.int32)[
+                perm[:valid]]) and bool((pb[valid:] == 0).all()),
+                f"{name}: payload != the stable permutation")
+
+    dist_runs = []
+    rx.mask_arrivals.launches = 0
+    for exchange in ("collective", "remote_dma"):
+        for name, keys, values in cases17:
+            before = rx.mask_arrivals.launches
+            res = gstt.distributed_sort(keys, values, exchange=exchange)
+            torch.cuda.synchronize()
+            launched = rx.mask_arrivals.launches - before
+            expect = 1 if exchange == "remote_dma" else \
+                dist_sort._chunking(res["cap"], 4)[0]
+            _require(launched == expect, f"{name} {exchange}: {launched} "
+                     f"mask_arrivals launches, expected {expect}")
+            check17(name, keys, values, res, N, 0)
+            dist_runs.append([name, exchange, launched, res["cap"]])
+            del res
+            free()
+        small = 1 << 20
+        before = rx.mask_arrivals.launches
+        res = gstt.distributed_sort(u32, cap_elems=small, exchange=exchange)
+        check17("u32_keys_cap_2^20", u32, None, res, small, N - small)
+        dist_runs.append(["u32_keys_cap_2^20", exchange,
+                          rx.mask_arrivals.launches - before, small])
+        del res
+        out, ovf = gstt.distributed_sort_gather(u32, vals17, cap_elems=small,
+                                                exchange=exchange)
+        want = gstt.sort_pairs(u32, vals17, backend=gstt.Backend.XLA)
+        _require(ovf == 0 and all(torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+                                  for a, b in zip(out, want)),
+                 f"distributed_sort_gather retry ({exchange}) != flat sort")
+        del out, want
+        free()
+        # a fixed cap above n: the kernel masks a real tail on the path, the
+        # last 2^20 slots of the one cell (in the last of 4 chunks, or the
+        # ring's own block); each window it masked is replayed from what was
+        # sent (one rank receives what it sent) by the plain version, which
+        # launches nothing
+        big = N + (1 << 20)
+        real_exchange = dist_sort._exchange
+
+        def replayed_exchange(send, counts, group, fills, exchange):
+            recv, rc = real_exchange(send, counts, group, fills, exchange)
+            chunks, _, cw = send[0].shape
+            for c in range(chunks):
+                want = [x[c].clone() for x in send]
+                rx.mask_arrivals_plain(want, rc, fills, col0=c * cw)
+                big_windows.append([c * cw, cw, max(
+                    int((r[c].to(torch.int64) - w).abs().max())
+                    for r, w in zip(recv, want))])
+                del want
+            return recv, rc
+
+        big_windows = []
+        before = rx.mask_arrivals.launches
+        dist_sort._exchange = replayed_exchange
+        try:
+            res = gstt.distributed_sort(u32, vals17, cap_elems=big,
+                                        exchange=exchange)
+            torch.cuda.synchronize()
+        finally:
+            dist_sort._exchange = real_exchange
+        launched = rx.mask_arrivals.launches - before
+        expect = 1 if exchange == "remote_dma" else 4
+        _require(launched == expect, f"cap n + 2^20 {exchange}: {launched} "
+                 f"mask_arrivals launches, expected {expect}")
+        mask_err = max([mask_err] + [e for _, _, e in big_windows])
+        _require(len(big_windows) == expect
+                 and all(e == 0 for _, _, e in big_windows),
+                 f"cap n + 2^20 {exchange}: a masked window != plain "
+                 f"{big_windows}")
+        _require(res["cap"] == big, f"cap n + 2^20: cap {res['cap']}")
+        check17("u32_pairs_cap_n+2^20", u32, vals17, res, N, 0)
+        dist_runs.append(["u32_pairs_cap_n+2^20", exchange, launched, big,
+                          big_windows])
+        del res
+        free()
+    mask_launches = rx.mask_arrivals.launches
+    emit(phase="distributed_path", n=N, ranks=1, backend="nccl",
+         runs=dist_runs, mask_arrivals_launches=mask_launches,
+         bit_exact=True)
+    # the kernel at the path's shape: the last collective chunk of the
+    # cap n + 2^20 run, 3 planes of (1, (n + 2^20) / 4) at col0 = 3/4 of the
+    # cell, whose last 2^20 slots are tail
+    cw = big // 4
+    path_planes = [torch.randint(-2**31, 2**31 - 1, (1, cw), generator=gen,
+                                 device=dev, dtype=torch.int32)
+                   for _ in range(3)]
+    path_rc = torch.tensor([N], dtype=torch.int32, device=dev)
+    fills = (codec.SENTINEL, -1, 0)
+    path_times = dict(
+        ms=median_ms(lambda: rx.mask_arrivals(path_planes, path_rc, fills,
+                                              col0=3 * cw)),
+        plain_ms=median_ms(lambda: rx.mask_arrivals_plain(
+            path_planes, path_rc, fills, col0=3 * cw)),
+        bound_ms=4 * (big - N) * 3 / bw * 1e3)
+    emit(phase="per_kernel", kernel="mask_arrivals", d=1, width=cw,
+         col0=3 * cw, operands=3, tail_slots=big - N, **path_times)
+    del path_planes
+
+    dist_times = {}
+    for what, values in (("keys", None), ("pairs", vals17)):
+        for exchange in ("collective", "remote_dma"):
+            dist_times[f"{what}_{exchange}"] = median_ms(
+                lambda: gstt.distributed_sort(u32, values, exchange=exchange))
+        dist_times[f"{what}_flat_torch_sort"] = median_ms(
+            (lambda: gstt.sort(u32, backend=gstt.Backend.XLA))
+            if values is None else
+            (lambda: gstt.sort_pairs(u32, values, backend=gstt.Backend.XLA)))
+        free()
+    emit(phase="end_to_end_distributed", n=N, ranks=1, ms=dist_times)
+    grp = dist.group.WORLD
+    codes = codec.encode_biased(u32)
+    pb = vals17.view(torch.int32)
+    gidx = dist_sort._gidx(0, N, dev)
+    steps = {"sample_splitters": median_ms(
+        lambda: dist_sort._sample_splitters(codes, 0, 1, 32, grp))}
+    spl_c, spl_g = dist_sort._sample_splitters(codes, 0, 1, 32, grp)
+    steps["cell_counts"] = median_ms(
+        lambda: dist_sort._cell_counts(codes, gidx, spl_c, spl_g, 1))
+    counts = dist_sort._cell_counts(codes, gidx, spl_c, spl_g, 1)
+    steps["local_sort"] = median_ms(
+        lambda: dist_sort._local_sort(codes, gidx, pb))
+    sorted_ops = dist_sort._local_sort(codes, gidx, pb)
+    del codes, gidx
+    cap17 = dist_sort._cap_ladder(N, 1)[-1]
+    for exchange in ("collective", "remote_dma"):
+        n_chunks = 1 if exchange == "remote_dma" else dist_sort._chunking(
+            cap17, 4)[0]
+        steps[f"pack_{exchange}"] = median_ms(
+            lambda: dist_sort._pack(sorted_ops, counts, cap17, n_chunks))
+        send = dist_sort._pack(sorted_ops, counts, cap17, n_chunks)
+        steps[f"exchange_{exchange}"] = median_ms(
+            lambda: dist_sort._exchange(send, counts, grp, fills, exchange))
+        recv, _ = dist_sort._exchange(send, counts, grp, fills, exchange)
+        del send
+    flat17 = [r.view(-1) for r in recv]
+    del recv, sorted_ops
+    for ops in (2, 3):
+        steps[f"merge_{ops}_operands"] = median_ms(
+            lambda: dist_sort._merge(flat17[:ops]))
+    emit(phase="per_step_distributed", what="pairs", n=N, ranks=1, cap=cap17,
+         ms=steps)
+    del flat17, u32, vals17, maxc, cases17
+    dist.destroy_process_group()
+    rendezvous.cleanup()
+    free()
+
+    # ---- phase 18: four ranks on the one card ----------------------------
+    # NCCL refuses two ranks on one GPU, and gloo's point-to-point ops take
+    # no CUDA tensor, so the ranks share the card through gloo's
+    # collectives, which carry CUDA tensors: the collective exchange.  Each
+    # rank holds its CUDA block against the same group's CPU run.
+    ranks18 = run_ranks(_phase18_rank, 4, 1 << 26, SEED + 18, timeout=600.0,
+                        threads=2)
+    for r, rec in enumerate(ranks18):
+        _require(rec["bit_exact"], f"phase 18 rank {r}: the card's blocks "
+                 f"!= the CPU run's")
+    _require(sum(rec["count"] for rec in ranks18) == 1 << 26,
+             "phase 18: counts do not add up to n")
+    emit(phase="distributed_ranks_on_one_card", n=1 << 26, ranks=4,
+         backend="gloo", exchange="collective", per_rank=ranks18,
+         remote_dma=ranks18[0]["remote_dma"])
+
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
         return {"name": kname, "route": "cuda",
@@ -1869,7 +2209,19 @@ def main() -> int:
         stitch_row("compact", "gpusorting_tpu/ops/stitch.py:85"),
         stitch_row("expand", "gpusorting_tpu/ops/stitch.py:324"),
         last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91"),
-        last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172")]}),
+        last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172"),
+        {"name": "exchange_mask", "route": "cuda",
+         "source": "gpusorting_tpu_torch/csrc/exchange_mask.cu",
+         "replaces": "gpusorting_tpu/parallel/remote_exchange.py:106",
+         "launches": mask_launches, "max_abs_err": mask_err,
+         "ms": mask_times[3]["ms"], "plain_ms": mask_times[3]["plain_ms"],
+         "bound_ms": mask_times[3]["bound_ms"], "bound_by": "bytes",
+         "library_ms": mask_times[3]["library_ms"], "card": card,
+         "operands": 3, "ms_2_operands": mask_times[2]["ms"],
+         "bound_ms_2_operands": mask_times[2]["bound_ms"],
+         "path_chunk_ms": path_times["ms"],
+         "path_chunk_plain_ms": path_times["plain_ms"],
+         "path_chunk_bound_ms": path_times["bound_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

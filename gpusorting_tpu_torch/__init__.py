@@ -8,7 +8,8 @@ every kernel the JAX package wrote in Pallas becomes a hand-written CUDA
 kernel (so far: the range-exchange relocate; the reduce-then-scan
 Upsweep, scan and downsweep; radix16's global histogram and binning pass;
 the sorting network's in-tile and cross-tile stages; the segmented sort's
-compact and expand, `csrc/`).
+compact and expand; mergesweep's merge tail and hyper stage; the
+distributed sort's receive-side masking, `csrc/`).
 
 Quick start:
     import gpusorting_tpu_torch as gstt
@@ -18,6 +19,8 @@ Quick start:
                     variant="device_radix")    # the radix engines
     k, v = gstt.split_sort_pairs(offsets, keys_cuda, values, seg_count)
                                                # the segmented sort
+    res = gstt.distributed_sort(shard)         # on every rank of an
+                                               # initialised process group
 """
 
 from .core.config import (
@@ -53,6 +56,11 @@ from .api import (
     super_test,
 )
 from .ops import argsort, sort, sort_batched, sort_pairs, sort_pairs_wide
+from .parallel.dist_sort import (
+    distributed_sort,
+    distributed_sort_gather,
+    make_mesh,
+)
 from .segsort.splitsort import (
     SegSortPlan,
     SplitSorter,
@@ -89,11 +97,14 @@ __all__ = [
     "TuningParameters",
     "argsort",
     "auto_engine",
+    "distributed_sort",
+    "distributed_sort_gather",
     "clear_routing_override",
     "clear_tuning_overrides",
     "get_device_info",
     "get_routing_parameters",
     "get_tuning_parameters",
+    "make_mesh",
     "make_segsort_fn",
     "make_segsort_plan",
     "routing_from_jax_fields",

@@ -23,6 +23,8 @@ from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels,
                                       mergesweep, radix, radix16, relocate,
                                       rangesweep as rs, rts, splitsweep,
                                       stitch)
+from gpusorting_tpu_torch.parallel import dist_sort
+from gpusorting_tpu_torch.parallel import remote_exchange as rx
 from gpusorting_tpu_torch.segsort import splitsort
 from gpusorting_tpu_torch.utils import validate
 
@@ -788,3 +790,130 @@ def test_splitsweep_kernels_at_their_shapes_match_plain(cuda, monkeypatch,
     assert int(cnt) == int(wcnt) == padded
     for a, b in zip(packed, wpacked):
         assert torch.equal(a[:padded], b[:padded])
+
+
+# ---- the distributed sort: exchange masking and one NCCL rank -----------------
+
+
+def _mask_case(d, num_ops, cap, seed, dev):
+    """(planes, stacked, rc): num_ops (d, cap) planes as views of one
+    (d, num_ops, cap) buffer (the ring's stacked layout), and counts of 0,
+    partial, exactly cap and above cap (sender truncation)."""
+    g = torch.Generator().manual_seed(seed)
+    stacked = torch.randint(-2**31, 2**31 - 1, (d, num_ops, cap),
+                            generator=g, dtype=torch.int32).to(dev)
+    rc = torch.randint(0, cap, (d,), generator=g, dtype=torch.int32)
+    rc[0] = 0
+    if d > 1:
+        rc[1], rc[2], rc[3] = cap, cap + 77, 1
+    return stacked, rc.to(dev)
+
+
+@pytest.mark.parametrize("d,cap", [(1, 128), (1, 5000), (8, 1 << 14),
+                                   (8, 3 * 4096 + 129)])
+@pytest.mark.parametrize("num_ops", [1, 2, 3])
+def test_mask_arrivals_kernel_matches_plain(cuda, d, cap, num_ops):
+    """Whole blocks, chunk windows and single sources, on separate and on
+    stacked (row-strided) planes, each bit for bit against the plain
+    version on the CPU."""
+    stacked, rc = _mask_case(d, num_ops, cap, d * cap + num_ops, cuda)
+    fills = (codec.SENTINEL, -1, 0)[:num_ops]
+    cw = -(-cap // 3)
+    windows = [(c0, min(cap, c0 + cw)) for c0 in range(0, cap, cw)]
+    forms = [("whole", [(0, cap, None)]),
+             ("chunks", [(a, b, None) for a, b in windows]),
+             ("sources", [(0, cap, range(s, s + 1)) for s in range(d)])]
+    for layout in ("separate", "stacked"):
+        for form, calls in forms:
+            if layout == "separate":
+                got = [stacked[:, o].contiguous() for o in range(num_ops)]
+            else:
+                buf = stacked.clone()
+                got = [buf[:, o] for o in range(num_ops)]
+            want = [stacked[:, o].cpu().contiguous() for o in range(num_ops)]
+            before = rx.mask_arrivals.launches
+            for a, b, src in calls:
+                rx.mask_arrivals([p[:, a:b] for p in got], rc, fills,
+                                 col0=a, sources=src)
+                rx.mask_arrivals_plain([p[:, a:b] for p in want], rc.cpu(),
+                                       fills, col0=a, sources=src)
+            torch.cuda.synchronize()
+            assert rx.mask_arrivals.launches - before == len(calls)
+            for g_, w in zip(got, want):
+                assert torch.equal(g_.cpu(), w), (layout, form)
+
+
+def test_mask_arrivals_checks_on_card(cuda):
+    x = torch.zeros(4, 256, dtype=torch.int32, device=cuda)
+    rc = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="planes\\[0\\] on"):
+        rx.mask_arrivals([x.cpu()], rc, (0,))
+    with pytest.raises(ValueError, match="unit stride"):
+        rx.mask_arrivals([x[:, ::2]], rc, (0,))
+    with pytest.raises(ValueError, match="sources"):
+        rx.mask_arrivals([x], rc, (0,), sources=range(2, 6))
+    before = rx.mask_arrivals.launches
+    rx.mask_arrivals([x[:, :0]], rc, (0,))     # nothing to mask: no launch
+    assert rx.mask_arrivals.launches == before
+
+
+@pytest.fixture
+def nccl_rank(cuda, tmp_path):
+    """A one-rank NCCL process group in this process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    yield cuda
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("exchange", ["collective", "remote_dma"])
+def test_distributed_sort_one_rank_on_card(nccl_rank, exchange):
+    """At one NCCL rank the distributed sort is the flat stable sort:
+    keys, pairs, f32 keys with special values, all-equal pairs, max-code
+    keys; the default ladder, and a fixed small cap that reports overflow
+    and the gather's retry."""
+    dev = nccl_rank
+    n = 300_001
+    u = prng.make_test_keys(n, 5, device=dev)
+    f = prng.make_test_keys(n, 6, torch.float32, device=dev).clone()
+    f[::97] = float("nan")
+    f[1::97] = -0.0
+    f[2::97] = float("inf")
+    f[3::97] = -float("inf")
+    maxc = u.clone()
+    maxc.view(torch.int32)[::5] = -1
+    vals = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    cases = [(u, None), (u, vals), (f, vals),
+             (torch.full((n,), 42, dtype=torch.int32, device=dev), vals),
+             (maxc, None)]
+    for keys, values in cases:
+        codes = codec.encode_biased(keys)
+        want, perm = torch.sort(codes, stable=True)
+        before = rx.mask_arrivals.launches
+        res = dist_sort.distributed_sort(keys, values, exchange=exchange)
+        torch.cuda.synchronize()
+        assert rx.mask_arrivals.launches - before == (
+            1 if exchange == "remote_dma" else
+            dist_sort._chunking(res["cap"], 4)[0])
+        assert int(res["count"]) == n and int(res["overflow"]) == 0
+        got = codec.bias(res["codes"])
+        assert torch.equal(got[:n], want)
+        assert bool((got[n:] == codec.SENTINEL).all())
+        assert torch.equal(res["global_index"].view(torch.int32)[:n],
+                           perm.to(torch.int32))
+        if values is not None:
+            pb = res["payload_bits"].view(torch.int32)
+            assert torch.equal(pb[:n], values.view(torch.int32)[perm])
+            assert bool((pb[n:] == 0).all())
+    res = dist_sort.distributed_sort(u, cap_elems=4096, exchange=exchange)
+    assert int(res["overflow"]) == n - 4096 and int(res["count"]) == 4096
+    out, ovf = dist_sort.distributed_sort_gather(u, cap_elems=4096,
+                                                 exchange=exchange)
+    assert ovf == 0
+    assert torch.equal(codec.encode_biased(out),
+                       torch.sort(codec.encode_biased(u)).values)
