@@ -119,7 +119,22 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      counts, local sort, pack, exchange, both merge forms);
  18. four gloo ranks on the one card (2^26 global u32 pairs, the
      collective exchange on CUDA tensors), each rank's blocks held bit for
-     bit against the same group's CPU run; remote_dma's refusal recorded.
+     bit against the same group's CPU run; remote_dma's refusal recorded;
+ 19. the row form of the reduce-then-scan pass (GST_MEGACORE=1) at
+     n = 2^28: downsweep_rows (its outputs and the side rows rowtab marks
+     present) and edge_fixup against their plain versions, bit for bit, on
+     uniform, E020, all-equal and a sparse-digit input (three or more side
+     entries name one row), 1, 2 and 3 planes, shifts 0 and 28, at the
+     "h100" tile and at 128 rows, the fixed planes also against the
+     element-form downsweep; then, with GST_MEGACORE=1 set for the phase
+     and restored after it, device_radix sort on uint32 / int32 / float32
+     keys, sort_pairs, sort_pairs_wide and argsort, each ascending and
+     descending, and one DeviceRadixSort sort, held like phase 2, each call
+     through 8 downsweep_rows and 8 edge_fixup launches and no element
+     downsweep; end to end keys, pairs and argsort with the gate on and
+     off; both kernels timed at both tiles on 1-3 planes beside the
+     element form, their byte bounds, the pass's bound and their plain
+     versions.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -131,6 +146,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -244,7 +260,8 @@ def main() -> int:
     # ---- phase 0: build every kernel, one nvcc per source, all at once ----
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
-               bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE, rx.SOURCE)
+               bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE, rx.SOURCE,
+               rts.ROWS_SOURCE, rts.FIXUP_SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -2124,6 +2141,282 @@ def main() -> int:
          backend="gloo", exchange="collective", per_rank=ranks18,
          remote_dma=ranks18[0]["remote_dma"])
 
+    # ---- phase 19: the row form of the downsweep (GST_MEGACORE=1) --------
+    # the kernels against their plain versions at n = 2^28, at the "h100"
+    # tile and at 128 rows: downsweep_rows' outputs and the side rows that
+    # rowtab marks present; edge_fixup on the plain version's (rowtab, side,
+    # outs); and the kernels' own chain against the element form
+    t19 = time.perf_counter()
+    rows_err = {"downsweep_rows": 0, "edge_fixup": 0}
+    row_tiles = (tile_rows, 128)
+
+    def rcheck(kname, got, want, what):
+        for g, w in zip(got, want):
+            _require(g.shape == w.shape, f"{kname} shape != plain on {what}")
+            if g.numel():
+                err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                rows_err[kname] = max(rows_err[kname], err)
+            _require(torch.equal(g, w), f"{kname} != plain on {what}")
+
+    def sparse_codes():
+        # digit 5 at shifts 0 and 28 for 1-3 keys in every 4096, digit 0
+        # elsewhere: neighbouring tiles' digit-5 ranges share output rows
+        x = prng.hybrid_taus_bits(N, SEED + 19, device=dev).view(
+            torch.int32) & 0x0FFFFFF0
+        g = torch.Generator(device=dev).manual_seed(SEED + 19)
+        blocks = N // 4096
+        hits = torch.randint(1, 4, (blocks,), device=dev, generator=g)
+        base = torch.arange(blocks, device=dev) * 4096
+        for j in range(3):
+            off = torch.randint(0, 4096, (blocks,), device=dev, generator=g)
+            x[(base + off)[hits > j]] |= 0x50000005
+        return codec.bias(x)
+
+    def entries_per_row(rowtab):
+        named = rowtab[rowtab >= 0].long()
+        return int(torch.bincount(named).max()) if named.numel() else 0
+
+    row_inputs = []
+    for name, make in (
+            ("uniform", lambda: codec.encode_biased(prng.make_test_keys(
+                N, SEED, torch.uint32, device=dev))),
+            ("E020", lambda: codec.encode_biased(prng.make_test_keys(
+                N, SEED, torch.uint32, gstt.EntropyPreset.E020,
+                device=dev))),
+            ("all_equal", lambda: torch.full((N,), 0x1234ABCD,
+                                             dtype=torch.int32, device=dev)),
+            ("sparse_digit", sparse_codes)):
+        x = make()
+        rides = tuple(prng.hybrid_taus_bits(N, SEED + j, device=dev)
+                      .view(torch.int32) for j in (1, 2))
+        for rows_t in row_tiles:
+            planes, _ = rts.pad_tiles((x,) + rides, rows_t)
+            for shift in (0, 28):
+                counts = kernels.tile_histogram4(planes[0], shift, rows_t)
+                table = kernels.exclusive_scan(counts.T.reshape(-1))
+                rowtab = rts.edge_rows(table, counts)
+                present = (rowtab.view(2, 16, -1) >= 0).permute(2, 1, 0)
+                shared = entries_per_row(rowtab)
+                if name == "sparse_digit":
+                    _require(shared >= 3, f"sparse_digit at {rows_t} rows, "
+                             f"shift {shift}: at most {shared} entries a row")
+                for ops in (planes[:1], planes[:2], planes):
+                    what = (f"{name} {rows_t} rows shift {shift}, "
+                            f"{len(ops)} planes")
+                    mask = present.unsqueeze(1).expand(
+                        -1, len(ops), -1, -1).reshape(-1)
+                    outs, side = rts.downsweep_rows(ops, table, counts,
+                                                    shift, rows_t)
+                    w_outs, w_side = rts.downsweep_rows_plain(
+                        ops, table, counts, shift, rows_t)
+                    rcheck("downsweep_rows", outs + [side[mask]],
+                           w_outs + [w_side[mask]], what)
+                    del mask
+                    fixed = rts.edge_fixup(rowtab, side, outs)
+                    del side
+                    got = rts.edge_fixup(rowtab, w_side,
+                                         [o.clone() for o in w_outs])
+                    want = rts.edge_fixup_plain(rowtab, w_side, w_outs)
+                    rcheck("edge_fixup", got, want, what)
+                    del got, want, w_outs, w_side
+                    element = rts.downsweep(ops, table, shift, rows_t)
+                    _require(all(torch.equal(f, e) for f, e in
+                                 zip(fixed, element)),
+                             f"row form != element form on {what}")
+                    del fixed, element, outs
+                emit(phase="kernel_vs_plain",
+                     kernel="downsweep_rows+edge_fixup", input=name, shift=shift, planes=[1, 2, 3],
+                     n=N, tile_rows=rows_t, max_entries_per_row=shared,
+                     bit_exact=True)
+            del planes, counts, table, rowtab, present
+            free()
+        del x, rides
+        free()
+    emit(phase="row_form_kernels_vs_plain_seconds",
+         seconds=time.perf_counter() - t19)
+
+    # the device_radix entry points with the gate on: every call through
+    # 8 downsweep_rows and 8 edge_fixup launches, none of the element form
+    megacore_was = os.environ.get("GST_MEGACORE")
+    os.environ["GST_MEGACORE"] = "1"
+    try:
+        row_fns = (rts.downsweep_rows, rts.edge_fixup, rts.downsweep)
+        for f in row_fns:
+            f.launches = 0
+        row_runs = []
+
+        def row_call(label, fn):
+            before = tuple(f.launches for f in row_fns)
+            out = fn()
+            torch.cuda.synchronize()
+            delta = tuple(f.launches - b for f, b in zip(row_fns, before))
+            _require(delta == (8, 8, 0), f"{label}: launches {delta} != "
+                     f"(8, 8, 0) (downsweep_rows, edge_fixup, downsweep)")
+            row_runs.append({"call": label, "launches": delta})
+            return out
+
+        pal = {"backend": gstt.Backend.PALLAS, "variant": "device_radix"}
+        for kname, make in (
+                ("sort_u32", lambda: prng.make_test_keys(
+                    N, SEED + 4, torch.uint32, device=dev)),
+                ("sort_i32", lambda: prng.make_test_keys(
+                    N, SEED + 6, torch.int32, gstt.EntropyPreset.E054,
+                    device=dev)),
+                ("sort_f32", f32_keys)):
+            keys = make()
+            perm = oracle_perm(keys)
+            for order in orders:
+                out = row_call(f"{kname} {order.value}",
+                               lambda: gstt.sort(keys, order=order, **pal))
+                _require(same_bits(out, keys, perm, order),
+                         f"row form {kname} {order.value} != torch.sort")
+                del out
+            del keys, perm
+            free()
+        keys, vals = prng.make_test_pairs(N, SEED + 7, torch.uint32,
+                                          torch.uint32,
+                                          gstt.EntropyPreset.E033,
+                                          device=dev)
+        hi = prng.hybrid_taus_bits(N, SEED + 17, device=dev)
+        perm = oracle_perm(keys)
+        for order in orders:
+            ok, ov = row_call(f"sort_pairs_u32 {order.value}",
+                              lambda: gstt.sort_pairs(keys, vals,
+                                                      order=order, **pal))
+            _require(same_bits(ok, keys, perm, order)
+                     and same_bits(ov, vals, perm, order),
+                     f"row form sort_pairs {order.value} != torch.sort")
+            _require(int(validate.count_pair_violations(ok, ov, order))
+                     == 0, f"row form sort_pairs {order.value}: stability "
+                     "violated")
+            del ok, ov
+            wk, wlo, whi = row_call(
+                f"sort_pairs_wide {order.value}",
+                lambda: gstt.sort_pairs_wide(keys, vals, hi, order=order,
+                                             **pal))
+            _require(same_bits(wk, keys, perm, order)
+                     and same_bits(wlo, vals, perm, order)
+                     and same_bits(whi, hi, perm, order),
+                     f"row form sort_pairs_wide {order.value} != torch.sort")
+            del wk, wlo, whi
+        del keys, vals, hi, perm
+        free()
+        keys = prng.make_test_keys(N, SEED + 8, torch.uint32,
+                                   gstt.EntropyPreset.E081, device=dev)
+        perm = oracle_perm(keys).to(torch.int32)
+        for order in orders:
+            out = row_call(f"argsort {order.value}",
+                           lambda: gstt.argsort(keys, order=order, **pal))
+            _require(torch.equal(out, flip(perm, order)),
+                     f"row form argsort {order.value} != torch.sort")
+            del out
+        del keys, perm
+        keys = prng.make_test_keys(N, SEED + 10, torch.float32, device=dev)
+        sorter = gstt.DeviceRadixSort(gstt.SortConfig(
+            backend=gstt.Backend.PALLAS))
+        out = row_call("DeviceRadixSort.sort", lambda: sorter.sort(keys))
+        _require(same_bits(out, keys, oracle_perm(keys),
+                           gstt.Order.ASCENDING),
+                 "row form DeviceRadixSort.sort != torch.sort")
+        del keys, out
+        free()
+        row_launches = {f.__name__: f.launches for f in row_fns}
+        _require(row_launches["downsweep_rows"] > 0
+                 and row_launches["edge_fixup"] > 0,
+                 f"the row form path missed a kernel: {row_launches}")
+        emit(phase="row_form_path", n=N, tile_rows=tile_rows,
+             launches=row_launches, runs=row_runs, bit_exact=True)
+
+        # end to end, the gate on and off, in turns
+        payload = torch.arange(N, dtype=torch.int32, device=dev)
+        for what, fn in (
+                ("keys", lambda k: gstt.sort(k, **pal)),
+                ("pairs", lambda k: gstt.sort_pairs(k, payload, **pal)),
+                ("argsort", lambda k: gstt.argsort(k, **pal))):
+            for route, gate in (("device_radix_rows", "1"),
+                                ("device_radix", "0"),
+                                ("device_radix", "0"),
+                                ("device_radix_rows", "1")):
+                os.environ["GST_MEGACORE"] = gate
+                r = timing.batch_timing(fn, N, batch=batch, seed=SEED,
+                                        device=dev)
+                emit(phase="end_to_end_row_form", what=what, route=route,
+                     gst_megacore=gate, n=N, batch=batch,
+                     ms=r["seconds_per_sort"] * 1e3,
+                     spread_ms=[r["spread_min_s"] * 1e3,
+                                r["spread_max_s"] * 1e3])
+                free()
+        del payload
+    finally:
+        if megacore_was is None:
+            os.environ.pop("GST_MEGACORE", None)
+        else:
+            os.environ["GST_MEGACORE"] = megacore_was
+    free()
+
+    # times of both kernels at the two tiles on 1, 2 and 3 planes, beside
+    # the element form on the same table, their byte bounds and their plain
+    # versions.  bound of downsweep_rows: the planes read, the outputs
+    # written (zeroed in the call) and the present side rows written;
+    # bound of edge_fixup: rowtab and the present side rows read, the rows
+    # they name read and written.  The pass's own bound is the
+    # permutation's (8 bytes an element a plane); what the row form moves
+    # is the planes read, the outputs zeroed, the whole rows written, the
+    # side rows written and read back, the named rows read and written,
+    # and the tables.
+    x = codec.encode_biased(prng.make_test_keys(N, SEED, torch.uint32,
+                                                device=dev))
+    ride = torch.arange(N, dtype=torch.int32, device=dev)
+    shift = 28
+    row_times = {}
+    for rows_t in row_tiles:
+        planes3 = rts.pad_tiles((x, ride, ride.clone()), rows_t)[0]
+        T_r = N // (rows_t * LANES)
+        counts = kernels.tile_histogram4(planes3[0], shift, rows_t)
+        table = kernels.exclusive_scan(counts.T.reshape(-1))
+        rowtab = rts.edge_rows(table, counts)
+        present = int((rowtab >= 0).sum())
+        named = int(torch.unique(rowtab[rowtab >= 0]).numel())
+        for n_planes in (1, 2, 3):
+            ops = planes3[:n_planes]
+            outs, side = rts.downsweep_rows(ops, table, counts, shift,
+                                            rows_t)
+            p_outs, p_side = rts.downsweep_rows_plain(ops, table, counts,
+                                                      shift, rows_t)
+            side_bytes = 512 * n_planes * present
+            rows_bytes = 8 * N * n_planes + 128 * T_r + side_bytes
+            fix_bytes = 128 * T_r + side_bytes + 1024 * n_planes * named
+            moved = (8 * N * n_planes + 512 * n_planes * (N // LANES - named)
+                     + 2 * side_bytes + 1024 * n_planes * named + 384 * T_r)
+            rec = dict(
+                tile_rows=rows_t, tiles=T_r, planes=n_planes,
+                present_entries=present, named_rows=named,
+                rows_ms=median_ms(lambda: rts.downsweep_rows(
+                    ops, table, counts, shift, rows_t)),
+                rows_plain_ms=median_ms(lambda: rts.downsweep_rows_plain(
+                    ops, table, counts, shift, rows_t), iters=3),
+                rows_bound_ms=rows_bytes / bw * 1e3,
+                fixup_ms=median_ms(lambda: rts.edge_fixup(rowtab, side,
+                                                          outs)),
+                fixup_plain_ms=median_ms(lambda: rts.edge_fixup_plain(
+                    rowtab, p_side, p_outs), iters=3),
+                fixup_bound_ms=fix_bytes / bw * 1e3,
+                element_ms=median_ms(lambda: rts.downsweep(
+                    ops, table, shift, rows_t)),
+                pass_bound_ms=8 * N * n_planes / bw * 1e3,
+                row_form_bytes=moved, row_form_bytes_ms=moved / bw * 1e3,
+                bound_by="bytes", library_ms=None,
+                library="none: no one torch call scatters by a digit table "
+                        "or ORs rows by a table")
+            row_times[rows_t, n_planes] = rec
+            emit(phase="per_kernel_row_form", n=N, **rec)
+            del outs, side, p_outs, p_side
+        del planes3, counts, table, rowtab
+        free()
+    del x, ride
+    free()
+    emit(phase="row_form_seconds", seconds=time.perf_counter() - t19)
+
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
         return {"name": kname, "route": "cuda",
@@ -2185,9 +2478,15 @@ def main() -> int:
         radix_row("exclusive_scan", "exclusive_scan", "exclusive_scan.cu",
                   "gpusorting_tpu/ops/kernels.py:209",
                   radix_times["exclusive_scan"]),
-        radix_row("downsweep", "downsweep", "downsweep.cu",
-                  "gpusorting_tpu/ops/rts.py:62",
-                  radix_times["downsweep_1"]),
+        dict(radix_row("downsweep", "downsweep", "downsweep.cu",
+                       "gpusorting_tpu/ops/rts.py:62",
+                       radix_times["downsweep_1"]),
+             rows_source="gpusorting_tpu_torch/csrc/downsweep_rows.cu",
+             rows_launches=row_launches["downsweep_rows"],
+             rows_max_abs_err=rows_err["downsweep_rows"],
+             rows_ms=row_times[tile_rows, 1]["rows_ms"],
+             rows_plain_ms=row_times[tile_rows, 1]["rows_plain_ms"],
+             rows_bound_ms=row_times[tile_rows, 1]["rows_bound_ms"]),
         new_row("global_hist", "global_histogram", "global_hist.cu",
                 "gpusorting_tpu/ops/kernels.py:62",
                 new_times["global_histogram"]),
@@ -2208,6 +2507,15 @@ def main() -> int:
                 new_times["global_stage"]),
         stitch_row("compact", "gpusorting_tpu/ops/stitch.py:85"),
         stitch_row("expand", "gpusorting_tpu/ops/stitch.py:324"),
+        {"name": "edge_fixup", "route": "cuda",
+         "source": "gpusorting_tpu_torch/csrc/edge_fixup.cu",
+         "replaces": "gpusorting_tpu/ops/rts.py:281",
+         "launches": row_launches["edge_fixup"],
+         "max_abs_err": rows_err["edge_fixup"],
+         "ms": row_times[tile_rows, 1]["fixup_ms"],
+         "plain_ms": row_times[tile_rows, 1]["fixup_plain_ms"],
+         "bound_ms": row_times[tile_rows, 1]["fixup_bound_ms"],
+         "bound_by": "bytes", "library_ms": None, "card": card},
         last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91"),
         last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172"),
         {"name": "exchange_mask", "route": "cuda",

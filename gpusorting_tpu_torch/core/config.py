@@ -5,6 +5,8 @@ Port of `gpusorting_tpu/core/config.py`:
     (reference: GPUSortingD3D12/GPUSorting.h:14-87)
   - `DeviceInfo`, probed from the tensor's device with
     `torch.cuda.get_device_properties` (reference: GPUSortingD3D12.cpp:18-81)
+  - `tensorcores_per_chip` and the `GST_MEGACORE` gate `megacore_parallel`
+    (no `grid_semantics`: no kernel here declares a Mosaic grid)
   - `TuningParameters`, the radix engines' tile table per card and mode,
     and its overrides (reference: Tuner.h:895-927)
   - `RoutingParameters`, its per-card table and overrides, and the single
@@ -16,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
+import os
 
 import torch
 
@@ -166,6 +169,28 @@ def get_device_info(device: torch.device | str | None = None) -> DeviceInfo:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return _probe(str(dev))
+
+
+def tensorcores_per_chip(info: DeviceInfo | None = None) -> int:
+    """TPU TensorCores per chip, the count the JAX package's dual-core
+    ("Megacore") gate reads: 1 for every CUDA card and for the CPU, since a
+    GPU has no pair of cores that split one kernel's grid between them."""
+    del info
+    return 1
+
+
+def megacore_parallel(info: DeviceInfo | None = None) -> bool:
+    """Whether the reduce-then-scan engine runs its core-split-safe pass
+    (ops/rts.py: the row-writing downsweep and the edge fixup).
+
+    GST_MEGACORE=1 or =0 forces it, read at each call, as in the JAX
+    package; otherwise it is on only where `tensorcores_per_chip` is above
+    1, which is never here, so the element-writing downsweep stays the
+    default on every device."""
+    env = os.environ.get("GST_MEGACORE")
+    if env in ("0", "1"):
+        return env == "1"
+    return tensorcores_per_chip(info) > 1
 
 
 @dataclasses.dataclass(frozen=True)

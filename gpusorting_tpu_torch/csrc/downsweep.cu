@@ -11,9 +11,10 @@
 // table is the digit-major exclusive scan of the per-tile digit counts, so
 // the output is a permutation: every element is written exactly once.  The
 // TPU kernel's whole-row writes shared the rows at range edges, which it
-// OR-merged into a zeroed buffer (and, on dual-core parts, through a side
-// buffer and _edge_fixup_kernel); element writes share nothing, so none of
-// that is needed here.
+// OR-merged into a zeroed buffer; element writes share nothing, so this
+// form needs no merge.  Its dual-core form, which sends the shared rows
+// through a side buffer to _edge_fixup_kernel, is downsweep_rows.cu with
+// edge_fixup.cu, the pass that GST_MEGACORE=1 selects (ops/rts.py).
 //
 // Bound: memory.  Each plane is read once and written once, 8 bytes per
 // element per plane, plus the small table: at n = 2^28, 0.64 ms per plane

@@ -10,15 +10,25 @@ Upsweep -> Scan -> Downsweep).  Codes are the biased int32 carriers of
               flattening of the counts: one scan gives each (digit, tile)
               its absolute output cursor (global digit base plus the counts
               of the earlier tiles).
-  Downsweep — `downsweep`: every tile places its elements at the cursors,
-              stably; one launch of `csrc/downsweep.cu` per pass moves all
-              planes (replacing the Pallas `_downsweep_kernel`).
+  Downsweep — in one of two forms, picked by `config.megacore_parallel`:
+              * element form (the default): `downsweep` places every
+                element at its own address, stably; one launch of
+                `csrc/downsweep.cu` per pass moves all planes (replacing
+                the Pallas `_downsweep_kernel`).  No row is shared.
+              * row form (GST_MEGACORE=1, JAX's core-split-safe "parallel"
+                mode): `downsweep_rows` (`csrc/downsweep_rows.cu`, the same
+                Pallas kernel with parallel=True) writes every 128-lane row
+                that lies wholly inside one (tile, digit) range as a whole
+                row, and each partial row at a range's edge, lane-masked,
+                to the tile's own rows of a side buffer; `edge_rows` names
+                the output row of each partial, and `edge_fixup`
+                (`csrc/edge_fixup.cu`, replacing `_edge_fixup_kernel`) ORs
+                the side rows into those rows.  Rows at range edges are
+                shared by several ranges, which is what the fixup is for.
 
 Given the table, tiles are independent, so no grid order is needed.  The
-TPU artifacts are gone: the SMEM chunking of the downsweep grid, the slack
-rows and OR-merged boundary rows of its whole-row writer, and the
-dual-core edge fixup (`_edge_fixup_kernel`), which has no work when every
-element is written at its own address.
+TPU artifacts that remain gone in both forms: the SMEM chunking of the
+downsweep grid (one launch per pass) and the slack rows past the output.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import functools
 import torch
 
 from ..core import codec
-from ..core.config import Mode, get_device_info, get_tuning_parameters
+from ..core.config import (Mode, get_device_info, get_tuning_parameters,
+                           megacore_parallel)
 from . import _nvcc, kernels
 
 LANES = kernels.LANES
@@ -37,6 +48,12 @@ NBUCKETS = kernels.NBUCKETS
 PASSES = 8
 MAX_PLANES = 3
 SOURCE = _nvcc.CSRC / "downsweep.cu"
+ROWS_SOURCE = _nvcc.CSRC / "downsweep_rows.cu"
+FIXUP_SOURCE = _nvcc.CSRC / "edge_fixup.cu"
+# Shared memory the row form's staged tile may take: 3 planes of 128 rows,
+# within the 227 KB an H100 block opts in to beside the scatter's own
+# ~27 KB of counters and staging.
+ROWS_STAGE_BYTES = 3 * 128 * LANES * 4
 
 
 def default_tile_rows(device: torch.device, pairs: bool = False) -> int:
@@ -76,12 +93,13 @@ def pad_tiles(operands, tile_rows: int):
 # ---- Downsweep ------------------------------------------------------------
 
 
-def downsweep_plain(planes, table: torch.Tensor, shift: int,
-                    tile_rows: int) -> list:
-    """Plain version: a stable argsort of the key t * 16 + digit groups
-    each (tile, digit) range in input order; sorted element j of group g
-    goes to table[d * T + t] + (j - start of g)."""
-    x = planes[0].reshape(-1)
+def _scatter_plan(codes2d: torch.Tensor, table: torch.Tensor, shift: int,
+                  tile_rows: int):
+    """(order, dst, group) of the stable scatter: a stable argsort of the
+    key t * 16 + digit groups each (tile, digit) range in input order;
+    sorted element j of group g = t * 16 + d goes to table[d * T + t] +
+    (j - start of g)."""
+    x = codes2d.reshape(-1)
     n = x.numel()
     num_tiles = n // (tile_rows * LANES)
     pos = torch.arange(n, device=x.device)
@@ -91,12 +109,24 @@ def downsweep_plain(planes, table: torch.Tensor, shift: int,
     rank = pos - torch.searchsorted(skey, skey)
     dst = (table.to(torch.int64)[(skey % NBUCKETS) * num_tiles
                                  + skey // NBUCKETS] + rank)
+    return order, dst, skey
+
+
+def _scatter(planes, order, dst) -> list:
     outs = []
     for p in planes:
         out = torch.empty_like(p).view(-1)
         out[dst] = p.reshape(-1)[order]
         outs.append(out.view(p.shape))
     return outs
+
+
+def downsweep_plain(planes, table: torch.Tensor, shift: int,
+                    tile_rows: int) -> list:
+    """Plain version: every element scattered to its own address
+    (`_scatter_plan`)."""
+    order, dst, _ = _scatter_plan(planes[0], table, shift, tile_rows)
+    return _scatter(planes, order, dst)
 
 
 @functools.cache
@@ -153,18 +183,249 @@ def downsweep(planes, table: torch.Tensor, shift: int,
 downsweep.launches = 0
 
 
+# ---- Downsweep, row form, and its edge fixup -------------------------------
+
+
+def edge_rows(table: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """The (2 * 16 * T,) int32 `rowtab`: entry (e * 16 + d) * T + t is the
+    output row of the partial row at edge e (0 low, 1 high) of tile t's
+    digit-d range, or -1 where that range has no such partial.  A range
+    that starts mid-row has a low partial in its first row; one that ends
+    mid-row has a high partial in its last row unless that row is its first
+    (then the low partial holds it).  Plain tensor code (rts.py:447-456 of
+    the JAX package); `table` is the digit-major (16 * T,) cursor scan and
+    `counts` the Upsweep's (T, 16) table."""
+    num_tiles = counts.shape[0]
+    cur = table.view(NBUCKETS, num_tiles)
+    tc = counts.T
+    hi = cur + tc
+    first_full = (cur + (LANES - 1)) >> 7
+    lo_row = torch.where((tc > 0) & ((cur & (LANES - 1)) != 0), cur >> 7, -1)
+    hi_row = torch.where((tc > 0) & ((hi & (LANES - 1)) != 0)
+                         & ((hi >> 7) >= first_full), hi >> 7, -1)
+    return torch.stack([lo_row, hi_row]).reshape(-1).to(torch.int32)
+
+
+def side_row(t, o, d, e, num_ops: int):
+    """The side-buffer row of tile t's plane-o partial of digit d, edge e."""
+    return ((t * num_ops + o) * NBUCKETS + d) * 2 + e
+
+
+def downsweep_rows_plain(planes, table: torch.Tensor, counts: torch.Tensor,
+                         shift: int, tile_rows: int):
+    """Plain version of `downsweep_rows`: the element scatter, then each
+    output row kept where one range owns all its 128 slots, and each
+    present partial (`edge_rows`) copied to its side row with the slots of
+    other ranges zeroed.  Absent side rows are zeros, as in JAX."""
+    rows = planes[0].shape[0]
+    num_tiles = counts.shape[0]
+    order, dst, group = _scatter_plan(planes[0], table, shift, tile_rows)
+    full = _scatter(planes, order, dst)
+    owner = torch.empty_like(group)
+    owner[dst] = group
+    del order, dst, group
+    owner = owner.view(rows, LANES)
+    whole = (owner == owner[:, :1]).all(1, keepdim=True)
+    outs = [torch.where(whole, f, 0) for f in full]
+    # (T, 16, 2) rowtab, one entry per side row of a plane
+    rowtab = edge_rows(table, counts).view(2, NBUCKETS, num_tiles).permute(
+        2, 1, 0)
+    row = rowtab.clamp(min=0).to(torch.int64)
+    grp = (torch.arange(num_tiles, device=row.device).view(-1, 1, 1)
+           * NBUCKETS + torch.arange(NBUCKETS, device=row.device).view(
+               1, -1, 1))
+    mine = (owner[row] == grp.unsqueeze(-1)) & (rowtab >= 0).unsqueeze(-1)
+    side = torch.stack([torch.where(mine, f[row], 0) for f in full], dim=1)
+    return outs, side.reshape(-1, LANES)
+
+
+@functools.cache
+def _rows_library() -> ctypes.CDLL:
+    lib = _nvcc.load(ROWS_SOURCE)
+    fn = lib.gst_downsweep_rows
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
+                   shift: int, tile_rows: int):
+    """One pass's row-writing scatter of 1-3 (rows, 128) int32 planes
+    (plane 0 the biased codes) by the digit-major (16 * T,) cursor table
+    and the Upsweep's (T, 16) counts.  Returns (outs, side):
+
+      outs — the planes, zeroed, with every row that lies wholly inside one
+             (tile, digit) range written whole; every other row zero.
+      side — (T * num_ops * 16 * 2, 128) int32: row `side_row(t, o, d, e)`
+             holds plane o's slots of tile t's digit-d range in the row
+             that `edge_rows` names for edge e, zeros in the other slots.
+             Rows whose entry is -1 are never read; the kernel leaves them
+             unwritten, the plain version zero.
+
+    CUDA planes launch `csrc/downsweep_rows.cu` once for all planes (or
+    raise); the staged tile, num_ops * tile_rows * 512 bytes, must fit
+    `ROWS_STAGE_BYTES` of shared memory.  CPU planes take
+    `downsweep_rows_plain`."""
+    kernels.check_shift(shift)
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"downsweep_rows takes 1-{MAX_PLANES} planes, got "
+                         f"{len(planes)}")
+    rows = planes[0].shape[0]
+    if tile_rows < 1 or rows % tile_rows:
+        raise ValueError(f"{rows} rows are not whole tiles of {tile_rows}")
+    num_tiles = rows // tile_rows
+    if counts.shape != (num_tiles, NBUCKETS):
+        raise ValueError(f"downsweep_rows: counts shape {tuple(counts.shape)}"
+                         f" != {(num_tiles, NBUCKETS)}")
+    if planes[0].device.type == "cpu":
+        for p in planes:
+            kernels.check_int32("downsweep_rows", p)
+        return downsweep_rows_plain(planes, table, counts, shift, tile_rows)
+    dev = planes[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"downsweep_rows: unsupported device {dev}")
+    for i, p in enumerate(planes):
+        _nvcc.check("downsweep_rows", f"planes[{i}]", p, (rows, LANES), dev,
+                    ref="planes[0]")
+    _nvcc.check("downsweep_rows", "table", table, (NBUCKETS * num_tiles,),
+                dev, ref="planes[0]")
+    _nvcc.check("downsweep_rows", "counts", counts, (num_tiles, NBUCKETS),
+                dev, ref="planes[0]")
+    if rows * LANES >= 1 << 31:
+        raise ValueError(f"downsweep_rows: {rows * LANES} elements exceed "
+                         f"int32")
+    stage = len(planes) * tile_rows * LANES * 4
+    if stage > ROWS_STAGE_BYTES:
+        raise ValueError(f"downsweep_rows: a staged tile of {len(planes)} "
+                         f"planes x {tile_rows} rows takes {stage} bytes of "
+                         f"shared memory, over {ROWS_STAGE_BYTES}")
+    outs = [torch.zeros_like(p) for p in planes]
+    side = torch.empty((num_tiles * len(planes) * NBUCKETS * 2, LANES),
+                       dtype=torch.int32, device=dev)
+    spare = [0] * (MAX_PLANES - len(planes))
+    _nvcc.launch("downsweep_rows", _rows_library().gst_downsweep_rows,
+                 *[p.data_ptr() for p in planes], *spare,
+                 *[o.data_ptr() for o in outs], *spare, side.data_ptr(),
+                 table.data_ptr(), counts.data_ptr(), len(planes),
+                 num_tiles, tile_rows, shift, device=dev)
+    downsweep_rows.launches += 1
+    return outs, side
+
+
+downsweep_rows.launches = 0
+
+
+def edge_fixup_plain(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
+    """Plain version of `edge_fixup`, vectorised: the present entries are
+    sorted by row and ORed in rounds by their rank within the row, so that
+    no round names one row twice."""
+    num_ops = len(outs)
+    num_tiles = rowtab.numel() // (2 * NBUCKETS)
+    k = torch.nonzero(rowtab >= 0).squeeze(1)
+    if k.numel() == 0:
+        return outs
+    row = rowtab[k].to(torch.int64)
+    row, by_row = torch.sort(row, stable=True)
+    k = k[by_row]
+    rank = (torch.arange(k.numel(), device=k.device)
+            - torch.searchsorted(row, row))
+    e = k // (NBUCKETS * num_tiles)
+    d = (k // num_tiles) % NBUCKETS
+    t = k % num_tiles
+    for j in range(int(rank.max()) + 1):
+        sel = rank == j
+        r = row[sel]
+        for o, out in enumerate(outs):
+            out[r] |= side[side_row(t[sel], o, d[sel], e[sel], num_ops)]
+    return outs
+
+
+@functools.cache
+def _fixup_library() -> ctypes.CDLL:
+    lib = _nvcc.load(FIXUP_SOURCE)
+    fn = lib.gst_edge_fixup
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def edge_fixup(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
+    """OR each present side row into its output row, in place, for each of
+    the 1-3 (rows, 128) int32 planes `outs`: entry k = (e * 16 + d) * T + t
+    of the (2 * 16 * T,) int32 `rowtab` (`edge_rows`) names the row of
+    `side` row `side_row(t, o, d, e)` in plane o, or is -1 (absent).
+    Several entries may name one row; OR commutes, so the result does not
+    depend on their order.  Returns `outs`.
+
+    CUDA planes launch `csrc/edge_fixup.cu` once for all planes (or
+    raise); the kernel skips an entry naming no row of `outs`.  CPU planes
+    take `edge_fixup_plain`."""
+    if not 1 <= len(outs) <= MAX_PLANES:
+        raise ValueError(f"edge_fixup takes 1-{MAX_PLANES} planes, got "
+                         f"{len(outs)}")
+    entries = rowtab.numel()
+    if entries == 0 or entries % (2 * NBUCKETS):
+        raise ValueError(f"edge_fixup: rowtab of {entries} entries is not "
+                         f"2 * 16 * T")
+    num_tiles = entries // (2 * NBUCKETS)
+    side_shape = (num_tiles * len(outs) * NBUCKETS * 2, LANES)
+    if tuple(side.shape) != side_shape:
+        raise ValueError(f"edge_fixup: side shape {tuple(side.shape)} != "
+                         f"{side_shape}")
+    rows = outs[0].shape[0]
+    if outs[0].device.type == "cpu":
+        for t in (rowtab, side, *outs):
+            kernels.check_int32("edge_fixup", t)
+        return edge_fixup_plain(rowtab, side, outs)
+    dev = outs[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"edge_fixup: unsupported device {dev}")
+    for i, o in enumerate(outs):
+        _nvcc.check("edge_fixup", f"outs[{i}]", o, (rows, LANES), dev,
+                    ref="outs[0]")
+    _nvcc.check("edge_fixup", "rowtab", rowtab, (entries,), dev,
+                ref="outs[0]", align=4)
+    _nvcc.check("edge_fixup", "side", side, side_shape, dev, ref="outs[0]")
+    if rows * LANES >= 1 << 31:
+        raise ValueError(f"edge_fixup: {rows * LANES} elements exceed int32")
+    spare = [0] * (MAX_PLANES - len(outs))
+    _nvcc.launch("edge_fixup", _fixup_library().gst_edge_fixup,
+                 *[o.data_ptr() for o in outs], *spare, side.data_ptr(),
+                 rowtab.data_ptr(), len(outs), num_tiles, rows, device=dev)
+    edge_fixup.launches += 1
+    return outs
+
+
+edge_fixup.launches = 0
+
+
 # ---- the engine -----------------------------------------------------------
 
 
-def _sort_rts(operands, tile_rows: int):
+def rts_pass(planes, shift: int, tile_rows: int,
+             parallel: bool = False) -> list:
+    """One pass (Upsweep, scan, downsweep) over the (rows, 128) planes at
+    `shift`; `parallel` takes the row form and its edge fixup."""
+    counts = kernels.tile_histogram4(planes[0], shift, tile_rows)
+    table = kernels.exclusive_scan(counts.T.reshape(-1))
+    if not parallel:
+        return downsweep(planes, table, shift, tile_rows)
+    outs, side = downsweep_rows(planes, table, counts, shift, tile_rows)
+    return edge_fixup(edge_rows(table, counts), side, outs)
+
+
+def _sort_rts(operands, tile_rows: int, parallel: bool | None = None):
     """Stable 8-pass LSD sort of (codes, *rides), 1-D int32 each (at most
-    two rides); returns the sorted tuple."""
+    two rides); returns the sorted tuple.  parallel=None resolves from
+    `config.megacore_parallel` for the operands' device: the element form
+    unless GST_MEGACORE=1."""
+    if parallel is None:
+        parallel = megacore_parallel(get_device_info(operands[0].device))
     planes, n = pad_tiles(operands, tile_rows)
     for p in range(PASSES):
-        shift = 4 * p
-        counts = kernels.tile_histogram4(planes[0], shift, tile_rows)
-        table = kernels.exclusive_scan(counts.T.reshape(-1))
-        planes = downsweep(planes, table, shift, tile_rows)
+        planes = rts_pass(planes, 4 * p, tile_rows, parallel)
     return tuple(y.reshape(-1)[:n] for y in planes)
 
 

@@ -1,6 +1,6 @@
 """Tests of gpusorting_tpu_torch that need an NVIDIA card: each hand-written
-kernel (relocate, tile_histogram4, exclusive_scan, downsweep,
-global_histogram, binning_pass and its digit-plane form, local_stages,
+kernel (relocate, tile_histogram4, exclusive_scan, downsweep and its row
+form downsweep_rows with edge_fixup, global_histogram, binning_pass and its digit-plane form, local_stages,
 global_stage, compact_ops, expand_ops, merge_tail, hyper_stage) against its
 plain version, their launch checks, the engines
 and public entry points through the kernels against flat torch.sort, and
@@ -917,3 +917,116 @@ def test_distributed_sort_one_rank_on_card(nccl_rank, exchange):
     assert ovf == 0
     assert torch.equal(codec.encode_biased(out),
                        torch.sort(codec.encode_biased(u)).values)
+
+
+# ---- the row form of the downsweep and its edge fixup (GST_MEGACORE=1) ----
+
+
+def _sparse_codes(n, seed, dev):
+    """Codes whose digit at shifts 0 and 28 is 5 for 1-3 keys in every 4096
+    and 0 elsewhere: the small digit-5 ranges of neighbouring tiles share
+    output rows, so three or more side entries name one row."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 2**32, n, dtype=np.uint32) & np.uint32(0x0FFFFFF0)
+    for b in range(0, n, 4096):
+        hits = rng.integers(b, min(b + 4096, n), rng.integers(1, 4))
+        x[hits] |= np.uint32(0x50000005)
+    return codec.bias(torch.from_numpy(x)).to(dev)
+
+
+def _entries_per_row(rowtab):
+    named = rowtab[rowtab >= 0].long()
+    return int(torch.bincount(named).max()) if named.numel() else 0
+
+
+@pytest.mark.parametrize("tile_rows", [32, 128])
+@pytest.mark.parametrize("kind", ["rand", "distinct16", "alleq", "sparse"])
+def test_row_form_kernels_match_plain(cuda, kind, tile_rows):
+    n = 5 * tile_rows * 128 - 333
+    codes = (_sparse_codes(n, n, cuda) if kind == "sparse"
+             else _radix_codes(kind, n, n, cuda))
+    ride = torch.arange(n, dtype=torch.int32, device=cuda)
+    planes, _ = rts.pad_tiles((codes, ride, ride * 7), tile_rows)
+    for shift in (0, 28):
+        counts = kernels.tile_histogram4_plain(planes[0], shift, tile_rows)
+        table = kernels.exclusive_scan_plain(counts.T.reshape(-1))
+        rowtab = rts.edge_rows(table, counts)
+        present = (rowtab.view(2, 16, -1) >= 0).permute(2, 1, 0)  # (T,16,2)
+        if kind == "sparse":
+            assert _entries_per_row(rowtab) >= 3
+        for ops in (planes[:1], planes[:2], planes):
+            before = (rts.downsweep_rows.launches, rts.edge_fixup.launches)
+            outs, side = rts.downsweep_rows(ops, table, counts, shift,
+                                            tile_rows)
+            torch.cuda.synchronize()
+            want_outs, want_side = rts.downsweep_rows_plain(
+                ops, table, counts, shift, tile_rows)
+            for g, w in zip(outs, want_outs):
+                assert torch.equal(g, w)
+            mask = present.unsqueeze(1).expand(-1, len(ops), -1, -1)
+            mask = mask.reshape(-1)
+            assert torch.equal(side[mask], want_side[mask])
+            # the kernel's own side rows (absent ones unwritten) and the
+            # plain version's, each fixed by the kernel
+            element = rts.downsweep_plain(ops, table, shift, tile_rows)
+            fixed = rts.edge_fixup(rowtab, side, outs)
+            plain_in = [o.clone() for o in want_outs]
+            got = rts.edge_fixup(rowtab, want_side, plain_in)
+            torch.cuda.synchronize()
+            want = rts.edge_fixup_plain(rowtab, want_side,
+                                        [o.clone() for o in want_outs])
+            for f, g, w, e in zip(fixed, got, want, element):
+                assert torch.equal(g, w)
+                assert torch.equal(f, e) and torch.equal(w, e)
+            assert (rts.downsweep_rows.launches, rts.edge_fixup.launches) \
+                == (before[0] + 1, before[1] + 2)
+
+
+def test_row_form_wrappers_check_on_card(cuda):
+    x = torch.zeros((256, 128), dtype=torch.int32, device=cuda)
+    counts = torch.zeros((2, 16), dtype=torch.int32, device=cuda)
+    table = torch.zeros(32, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        rts.downsweep_rows([x.float()], table, counts, 0, 128)
+    with pytest.raises(ValueError, match="counts shape"):
+        rts.downsweep_rows([x], table, counts[:1], 0, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        rts.downsweep_rows([x] * 3, table[:16], counts[:1], 0, 256)
+    rowtab = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+    side = torch.ones((2 * 2 * 32, 128), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="side shape"):
+        rts.edge_fixup(rowtab, side, [x])
+    with pytest.raises(ValueError, match="on cpu"):
+        rts.edge_fixup(rowtab, side, [x, x.cpu()])
+    # every entry absent: nothing is read or written
+    assert not rts.edge_fixup(rowtab, side[:64], [x])[0].any()
+
+
+def test_row_form_sorts_on_card(cuda, monkeypatch):
+    """GST_MEGACORE=1: the reduce-then-scan engine and its public route run
+    the row form, 8 downsweep_rows and 8 edge_fixup launches a sort, and
+    match flat torch.sort."""
+    monkeypatch.setenv("GST_MEGACORE", "1")
+    n = 300_001
+    k = codec.encode_biased(prng.hybrid_taus_bits(n, n, 3, device=cuda))
+    v = prng.hybrid_taus_bits(n, n + 1, device=cuda).view(torch.int32)
+    want = torch.sort(k, stable=True)
+    before = (rts.downsweep.launches, rts.downsweep_rows.launches,
+              rts.edge_fixup.launches)
+    assert torch.equal(rts.sort_codes_rts(k), want.values)
+    sk, sv = rts.sort_pairs_rts(k, v)
+    assert torch.equal(sk, want.values) and torch.equal(sv, v[want.indices])
+    sk, sv, sw = rts._sort_rts((k, v, v ^ 0x5A5A5A5A), tile_rows=128)
+    assert torch.equal(sw, (v ^ 0x5A5A5A5A)[want.indices])
+    f = prng.make_test_keys(n, 11, torch.float32, device=cuda).clone()
+    f[::97] = float("nan")
+    f[1::97] = -0.0
+    for order in (gstt.Order.ASCENDING, gstt.Order.DESCENDING):
+        got = gstt.sort(f, order=order, backend=gstt.Backend.PALLAS,
+                        variant="device_radix")
+        flat = gstt.sort(f, order=order, backend=gstt.Backend.XLA)
+        assert torch.equal(got.view(torch.int32), flat.view(torch.int32))
+    torch.cuda.synchronize()
+    assert (rts.downsweep.launches - before[0],
+            rts.downsweep_rows.launches - before[1],
+            rts.edge_fixup.launches - before[2]) == (0, 40, 40)
