@@ -29,24 +29,31 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      counts) and FFX's fixed tile (exclusive_scan on its 16*B block sums,
      the downsweep by the table its ScanAdd builds): tile_histogram4 at
      all 8 shifts, and one downsweep pass on 1, 2 and 3 planes at shifts 0
-     and 28, each bit for bit; exclusive_scan also on a 2^24 vector;
+     and 28, each bit for bit; exclusive_scan also on a 2^24 vector and on
+     a 2^20 vector over the whole int32 range (its sums wrap);
   5. the Backend.PALLAS path at n = 2^28 through the public entry points,
      for variant="device_radix" and variant="ffx": sort on uint32 / int32 /
      float32 keys, sort_pairs with a uint32 and an int64 payload, and
      argsort, each ascending and descending, held like phase 2; every call
-     must show 8 tile_histogram4, 24 exclusive_scan (3 per scan) and 8
-     downsweep launches; then one DeviceRadixSort(backend=PALLAS) sort;
+     must show 8 tile_histogram4, 8 exclusive_scan (one chained-scan
+     launch per scan) and 8 downsweep launches; then one
+     DeviceRadixSort(backend=PALLAS) sort;
   6. times: the PALLAS routes end to end beside flat torch.sort, and each
      radix kernel at the main path's shapes beside its bound, its plain
-     version and the one torch call that computes the same function;
+     version and the one torch call that computes the same function; for
+     the scan and torch.cumsum also the device time (calls queued behind a
+     spin, so the events bracket device work only) and the host time a
+     call;
   7. the radix16 and network kernels against their plain versions at
      n = 2^28, on uniform, E020 and all-equal keys, each bit for bit:
      global_histogram (also on a length that is not a multiple of 128); one
      fused binning_pass on 1, 2 and 3 planes at shifts 0 and 28 with its
      cursors_out, and the same pass as the adversarial_segments chain;
      local_stages (the whole in-tile schedule and one tail schedule) on 1
-     plane (1 key), 3 planes (2 keys) and 4 planes (2 keys), each at its
-     tile; global_stage at strides of one and of four tiles;
+     plane (1 key), 2 planes (2 keys), 3 planes (2 keys) and 4 planes (2
+     keys), each at its tile, on 2 planes (1 key) with a tie-heavy key
+     plane and a distinct rider, and at an 8-row tile; global_stage at
+     strides of one and of four tiles (1, 3 and 4 planes);
   8. the Backend.PALLAS path at n = 2^28 for the variants this adds:
      "onesweep" (the default) and "radix16" on every key type and order,
      both payload widths, sort_pairs_wide and argsort, "forward_sweep" and
@@ -56,9 +63,10 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      radix16's one histogram and one binning pass per pass that is not
      skipped, per segment when segmented); then one sort each through
      OneSweep, ForwardSweep and EmulatedDeadlocking;
-  9. times: the new variants end to end beside device_radix and flat
+  9. times: the new variants, device_radix and ffx end to end beside flat
      torch.sort, and each new kernel beside its bound, its plain version
-     and the one torch call that computes the same function, if any;
+     and the one torch call that computes the same function, if any; the
+     in-tile pass and a tail on 1 plane and on 3 planes (2 keys);
  10. compact and expand (csrc/stitch.cu) against their plain versions at
      n = 2^28 on 1, 2 and 3 planes, bit for bit, under masks with none, all,
      half and 1/64 set and an interval mask of random segments; expand
@@ -560,13 +568,20 @@ def main() -> int:
     torch.cuda.synchronize()
     emit(phase="kernel_vs_plain", kernel="exclusive_scan", input="uniform",
          length=1 << 24, bit_exact=True)
+    vec = prng.hybrid_taus_bits(1 << 20, SEED + 14, device=dev).view(
+        torch.int32)
+    check("exclusive_scan", [kernels.exclusive_scan(vec)],
+          [kernels.exclusive_scan_plain(vec)], "a full-range 2^20 vector")
+    torch.cuda.synchronize()
+    emit(phase="kernel_vs_plain", kernel="exclusive_scan",
+         input="full_int32_range", length=1 << 20, bit_exact=True)
     del vec
     free()
 
     # ---- phase 5: the PALLAS path through the public entry points --------
     radix_fns = (kernels.tile_histogram4, kernels.exclusive_scan,
                  rts.downsweep)
-    per_call = (8, 24, 8)
+    per_call = (8, 8, 8)
 
     def radix_counts():
         return tuple(f.launches for f in radix_fns)
@@ -699,11 +714,26 @@ def main() -> int:
                 minlength=16 * T)),
             bound_ms=(4 * N + 4 * 16 * T) / bw * 1e3, launches_per_sort=8,
             library="torch.bincount(t*16+digit), key built in the call"),
+        # ms is one call between two events on an idle card (the host's
+        # work for the call included, as for torch.cumsum); device_ms the
+        # same calls queued behind a spin; host_ms the host's time a call
         "exclusive_scan": dict(
             ms=median_ms(lambda: kernels.exclusive_scan(flat)),
+            ms_median_of_50=median_ms(lambda: kernels.exclusive_scan(flat),
+                                      iters=50),
+            device_ms=timing.queued_device_time_ms(
+                lambda: kernels.exclusive_scan(flat), device=dev),
+            host_ms=timing.host_time_ms(
+                lambda: kernels.exclusive_scan(flat), device=dev),
             plain_ms=median_ms(lambda: kernels.exclusive_scan_plain(flat)),
             library_ms=median_ms(lambda: torch.cumsum(flat, 0)),
-            bound_ms=8 * 16 * T / bw * 1e3, launches_per_sort=24,
+            library_ms_median_of_50=median_ms(lambda: torch.cumsum(flat, 0),
+                                              iters=50),
+            library_device_ms=timing.queued_device_time_ms(
+                lambda: torch.cumsum(flat, 0), device=dev),
+            library_host_ms=timing.host_time_ms(
+                lambda: torch.cumsum(flat, 0), device=dev),
+            bound_ms=8 * 16 * T / bw * 1e3, launches_per_sort=8,
             library="torch.cumsum (inclusive, int64 out)"),
     }
     for n_planes in (1, 2, 3):
@@ -799,11 +829,18 @@ def main() -> int:
         del planes
 
         # 3 planes (2 keys) is the (code, index, payload) of pairs and
-        # argsort, at its own tile
-        for num_ops, num_keys in ((1, 1), (3, 2), (4, 2)):
-            tr = bitonic.network_tile_rows(dev, num_ops)
+        # argsort, 4 the 64-bit pairs', each at its own tile; (2, 1) a key
+        # plane of 16 values with a distinct rider, where equal keys make
+        # both sides of a pair take one element (the TPU kernels' rule);
+        # the 8-row tile is the smallest the network's own sorts give
+        tied = x & 15
+        for num_ops, num_keys, tr in ((1, 1, None), (2, 2, None),
+                                      (2, 1, None), (3, 2, None),
+                                      (4, 2, None), (1, 1, 8), (3, 2, 8)):
+            tr = tr or bitonic.network_tile_rows(dev, num_ops)
             te = tr * LANES
-            ops = [x.view(-1, LANES), idx.view(-1, LANES),
+            ops = [(tied if (num_ops, num_keys) == (2, 1) else x).view(
+                       -1, LANES), idx.view(-1, LANES),
                    rides[0].view(-1, LANES), rides[1].view(-1, LANES)]
             ops = ops[:num_ops]
             for sname, sched in (("in_tile", bitonic.in_tile_schedule(te)),
@@ -812,7 +849,15 @@ def main() -> int:
                           bitonic.local_stages(ops, sched, num_keys, tr),
                           bitonic.local_stages_plain(ops, sched, num_keys,
                                                      tr),
-                          f"{name} {sname}, {num_ops} planes")
+                          f"{name} {sname}, {num_ops} planes, {num_keys} "
+                          f"keys, {tr} rows")
+            emit(phase="kernel_vs_plain", kernel="local_stages", input=name,
+                 planes=num_ops, num_keys=num_keys, n=N, tile_rows=tr,
+                 schedules=["in_tile", "tail k=4*tile"],
+                 tie_heavy_key=(num_ops, num_keys) == (2, 1),
+                 bit_exact=True)
+            if tr == 8 or num_ops == 2:
+                continue
             for j in (te, 4 * te):
                 got = bitonic.global_stage([y.clone() for y in ops], j,
                                            8 * j, num_keys, tr)
@@ -821,11 +866,11 @@ def main() -> int:
                 check_new("global_stage", got, want,
                           f"{name} j={j}, {num_ops} planes")
                 del got, want
-            emit(phase="kernel_vs_plain", kernel="local_stages+global_stage",
+            emit(phase="kernel_vs_plain", kernel="global_stage",
                  input=name, planes=num_ops, num_keys=num_keys, n=N,
-                 tile_rows=tr, schedules=["in_tile", "tail k=4*tile"],
-                 global_strides=[te, 4 * te], bit_exact=True)
+                 tile_rows=tr, global_strides=[te, 4 * te], bit_exact=True)
             del ops
+        del tied
         torch.cuda.synchronize()
         del x, rides
         free()
@@ -974,7 +1019,7 @@ def main() -> int:
                                                             variant=v))):
         routes = [(f"pallas_{v}", gstt.Backend.PALLAS, v)
                   for v in ("onesweep", "forward_sweep", "radix16",
-                            "emulated_deadlocking", "device_radix")]
+                            "emulated_deadlocking", "device_radix", "ffx")]
         routes.append(("flat_torch_sort", gstt.Backend.XLA, "onesweep"))
         for rep in ("", "_2"):
             for route, backend, variant in routes:
@@ -1020,24 +1065,33 @@ def main() -> int:
             library="none: no one torch call places a stable digit "
                     "partition at given cursors")
     tr1 = bitonic.network_tile_rows(dev, 1)
-    te1 = tr1 * LANES
-    net1 = [x.view(-1, LANES)]
-    for sname, sched in (("in_tile", bitonic.in_tile_schedule(te1)),
-                         ("tail", bitonic.tail_schedule(te1, 4 * te1))):
-        # a compare-exchange of one 1-key plane is 4 32-bit operations per
-        # pair (2 comparisons, 2 selections), at the card's 32-bit
-        # non-tensor peak; its bytes are the plane read and written once
-        ops_ms = sched.shape[0] * (N // 2) * 4 / PEAK_OPS_32 * 1e3
-        bytes_ms = 8 * N / bw * 1e3
-        new_times[f"local_stages_{sname}"] = dict(
-            ms=median_ms(lambda: bitonic.local_stages(net1, sched, 1, tr1)),
-            plain_ms=median_ms(lambda: bitonic.local_stages_plain(
-                net1, sched, 1, tr1), iters=3),
-            library_ms=None, bound_ms=max(ops_ms, bytes_ms),
-            bound_by="operations" if ops_ms > bytes_ms else "bytes",
-            ops_ms=ops_ms, bytes_ms=bytes_ms, stages=sched.shape[0],
-            library="none: no one torch call runs a partial bitonic "
-                    "schedule")
+    for num_ops, num_keys in ((1, 1), (3, 2)):
+        tr = bitonic.network_tile_rows(dev, num_ops)
+        te = tr * LANES
+        net = planes3[:num_ops]
+        for sname, sched in (("in_tile", bitonic.in_tile_schedule(te)),
+                             ("tail", bitonic.tail_schedule(te, 4 * te))):
+            # a compare-exchange of a pair is its two lexicographic
+            # compares, 2 * (2 * keys - 1) 32-bit comparisons, and 2
+            # selections a plane (1 plane, 1 key: 4), at the card's 32-bit
+            # non-tensor peak; its bytes are the planes read and written
+            # once
+            per_pair = 2 * (2 * num_keys - 1) + 2 * num_ops
+            ops_ms = sched.shape[0] * (N // 2) * per_pair / PEAK_OPS_32 * 1e3
+            bytes_ms = 8 * N * num_ops / bw * 1e3
+            suffix = "" if num_ops == 1 else f"_{num_ops}"
+            new_times[f"local_stages_{sname}{suffix}"] = dict(
+                ms=median_ms(lambda: bitonic.local_stages(net, sched,
+                                                          num_keys, tr)),
+                plain_ms=median_ms(lambda: bitonic.local_stages_plain(
+                    net, sched, num_keys, tr), iters=3),
+                library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms > bytes_ms else "bytes",
+                ops_ms=ops_ms, bytes_ms=bytes_ms, stages=sched.shape[0],
+                runs=len(bitonic.stage_runs(sched)), planes=num_ops,
+                num_keys=num_keys, tile_rows=tr,
+                library="none: no one torch call runs a partial bitonic "
+                        "schedule")
     gplanes = [x.clone().view(-1, LANES)]
     new_times["global_stage"] = dict(
         ms=median_ms(lambda: bitonic.global_stage(gplanes, N // 2, N, 1,
@@ -1048,7 +1102,7 @@ def main() -> int:
         library="none: no one torch call runs one compare-exchange stage")
     for kname, rec in new_times.items():
         emit(phase="per_kernel", kernel=kname, n=N, **rec)
-    del x, u, ride, planes3, bases, net1, gplanes
+    del x, u, ride, planes3, bases, net, gplanes
     free()
 
     # ---- phase 10: compact and expand against their plain versions -------
@@ -2475,9 +2529,15 @@ def main() -> int:
     }, radix_row("tile_hist4", "tile_histogram4", "tile_hist4.cu",
                  "gpusorting_tpu/ops/kernels.py:144",
                  radix_times["tile_histogram4"]),
-        radix_row("exclusive_scan", "exclusive_scan", "exclusive_scan.cu",
-                  "gpusorting_tpu/ops/kernels.py:209",
-                  radix_times["exclusive_scan"]),
+        dict(radix_row("exclusive_scan", "exclusive_scan",
+                       "exclusive_scan.cu",
+                       "gpusorting_tpu/ops/kernels.py:209",
+                       radix_times["exclusive_scan"]),
+             redesigned="one chained-scan launch",
+             **{key: radix_times["exclusive_scan"][key] for key in (
+                 "device_ms", "host_ms", "library_device_ms",
+                 "library_host_ms", "ms_median_of_50",
+                 "library_ms_median_of_50")}),
         dict(radix_row("downsweep", "downsweep", "downsweep.cu",
                        "gpusorting_tpu/ops/rts.py:62",
                        radix_times["downsweep_1"]),
@@ -2499,9 +2559,15 @@ def main() -> int:
              digit_plane_plain_ms=last_times["binning_digits_1"]["plain_ms"],
              digit_plane_bound_ms=last_times["binning_digits_1"][
                  "bound_ms"]),
-        new_row("local_stages", "local_stages", "bitonic.cu",
-                "gpusorting_tpu/ops/bitonic.py:94",
-                new_times["local_stages_in_tile"]),
+        dict(new_row("local_stages", "local_stages", "bitonic.cu",
+                     "gpusorting_tpu/ops/bitonic.py:94",
+                     new_times["local_stages_in_tile"]),
+             redesigned="registers, warp shuffles, shared memory "
+                        "between runs",
+             **{f"{key}_{field}": new_times[key][field]
+                for key in ("local_stages_tail", "local_stages_in_tile_3",
+                            "local_stages_tail_3")
+                for field in ("ms", "plain_ms", "bound_ms")}),
         new_row("global_stage", "global_stage", "bitonic.cu",
                 "gpusorting_tpu/ops/bitonic.py:138",
                 new_times["global_stage"]),

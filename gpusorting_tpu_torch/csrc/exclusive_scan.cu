@@ -6,18 +6,34 @@
 //
 // The TPU kernel carries a running sum from one grid step to the next,
 // which holds only because a TPU grid runs in order.  A CUDA grid does not,
-// so this is reduce-then-scan, three launches:
-//   1. reduce: block b writes the sum of its tile of kTile elements;
-//   2. spine:  one block scans the block sums in place, chunk by chunk,
-//              carrying the running total in a register;
-//   3. scan:   block b scans its tile again and adds its scanned base.
+// so this is a single-pass chained scan with decoupled lookback, one
+// launch.  Each block:
+//   1. draws its tile from an atomic ticket, so every tile it waits on
+//      belongs to a block that started before it (no deadlock, however
+//      many blocks the grid has);
+//   2. loads its tile of kTile elements once into registers (16-byte loads
+//      for a whole tile) and reduces it with a block scan;
+//   3. publishes the tile's sum as an aggregate, then one warp looks back
+//      over its predecessors' status words 32 at a time, summing
+//      aggregates, until it meets an inclusive prefix; it publishes its
+//      own inclusive prefix;
+//   4. writes its tile's exclusive scan from the registers.
+//
+// A status word is 64 bits: the flag (aggregate or inclusive) and a 30-bit
+// epoch in the high half, the full 32-bit sum in the low half (the values
+// span the whole int32 range, so gst::chained_exclusive's 30-bit count
+// does not do here).  A word counts only if its epoch is the call's, so
+// words left by an earlier call read as "nothing published" with no
+// clearing: the wrapper owns one zeroed scratch buffer per device and
+// stream and hands each call the next epoch.  The ticket is the first
+// word of the scratch; the block that draws the last ticket sets it back
+// to 0 for the stream's next call.
 //
 // Bound: memory.  The vector is read once and written once, 8 bytes per
 // element; on the sort's path it is 16 * T elements (T = tiles), 8 MB at
-// n = 2^28 with 4096-key tiles, so a few microseconds: the three launches,
-// not the bytes, set its time there.  Design against that: nothing beyond
-// the three launches; a block scan is one pass of warp shuffles, and each
-// thread scans kItems consecutive elements in registers first.
+// n = 2^28 with 4096-key tiles, 2.5 us at 3.35 TB/s, about one launch's
+// latency.  So the design spends nothing beyond one launch: no second pass
+// over the data, no spine block, no memset.
 
 #include <cuda_runtime.h>
 
@@ -26,91 +42,146 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSpineThreads = 1024;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr int kSpineTile = kSpineThreads * kItems;
+constexpr unsigned kEpochMask = (1u << 30) - 1u;
+constexpr unsigned kAggregate = 1u << 30;
+constexpr unsigned kInclusive = 2u << 30;
 
-// Scans in[0 .. count) (count <= THREADS * kItems) into out (when out is not
-// null) starting from base; returns the tile's sum.  Thread j holds the
-// kItems consecutive elements from j * kItems.
-template <int THREADS>
-__device__ unsigned scan_tile(const int* in, int* out, long long count,
-                              unsigned base) {
-  unsigned v[kItems];
-  unsigned s = 0;
-  const long long i0 = (long long)threadIdx.x * kItems;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    v[i] = i0 + i < count ? (unsigned)in[i0 + i] : 0u;
-    s += v[i];
+__device__ __forceinline__ unsigned long long pack(unsigned flag,
+                                                   unsigned epoch,
+                                                   unsigned sum) {
+  return ((unsigned long long)(flag | epoch) << 32) | sum;
+}
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// Run by the 32 lanes of warp 0 for tile t with sum `total`: publishes it,
+// looks back, publishes the inclusive prefix; returns the sum of tiles
+// 0 .. t-1 in every lane.
+__device__ unsigned lookback(unsigned long long* status, long long t,
+                             unsigned total, unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) atomicExch(status, pack(kInclusive, epoch, total));
+    return 0u;
   }
-  unsigned total;
-  unsigned p = gst::block_exclusive<THREADS>(s, &total) + base;
-  if (out != nullptr) {
+  if (lane == 0) atomicExch(status + t, pack(kAggregate, epoch, total));
+  unsigned exclusive = 0;
+  for (long long top = t - 1;; top -= 32) {
+    // lane l reads tile top - l; a lane before tile 0 reads as an
+    // inclusive 0 (tile 0 always publishes an inclusive prefix, so the
+    // window that reaches it stops there anyway)
+    const long long k = top - lane;
+    unsigned flag = kInclusive;
+    unsigned sum = 0;
+    if (k >= 0) {
+      unsigned long long w;
+      do {
+        w = load_word(status + k);
+      } while ((unsigned)(w >> 32) != (kAggregate | epoch) &&
+               (unsigned)(w >> 32) != (kInclusive | epoch));
+      flag = (unsigned)(w >> 32) & ~kEpochMask;
+      sum = (unsigned)w;
+    }
+    const unsigned inclusive = __ballot_sync(0xffffffffu, flag == kInclusive);
+    // the nearest inclusive prefix ends the walk: sum the lanes up to it
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    unsigned part = lane <= stop ? sum : 0u;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    }
+    exclusive += part;
+    if (inclusive) break;
+  }
+  if (lane == 0) {
+    atomicExch(status + t, pack(kInclusive, epoch, exclusive + total));
+  }
+  return exclusive;
+}
+
+__global__ void __launch_bounds__(kThreads)
+chained_scan(const int* __restrict__ in, int* __restrict__ out, long long n,
+             unsigned* ticket, unsigned long long* status, unsigned epoch,
+             unsigned num_tiles) {
+  __shared__ unsigned s_tile;
+  __shared__ unsigned s_base;
+  if (threadIdx.x == 0) {
+    const unsigned t = atomicAdd(ticket, 1u);
+    if (t == num_tiles - 1) *ticket = 0u;   // every ticket is drawn
+    s_tile = t;
+  }
+  __syncthreads();
+  const long long t = s_tile;
+  const long long first = t * kTile + (long long)threadIdx.x * kItems;
+  const long long left = n - t * kTile;
+  const bool whole = left >= kTile;
+
+  unsigned v[kItems];
+  if (whole) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(in + first));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(in + first) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
-      if (i0 + i < count) out[i0 + i] = (int)p;
-      p += v[i];
+      v[i] = first + i < n ? (unsigned)__ldg(in + first + i) : 0u;
     }
   }
-  return total;
-}
-
-__device__ __forceinline__ long long tile_count(long long n, long long b) {
-  const long long left = n - b * kTile;
-  return left < kTile ? left : kTile;
-}
-
-__global__ void __launch_bounds__(kThreads)
-reduce_tiles(const int* __restrict__ in, int* __restrict__ sums,
-             long long n) {
-  const long long b = blockIdx.x;
-  const unsigned s =
-      scan_tile<kThreads>(in + b * kTile, nullptr, tile_count(n, b), 0u);
-  if (threadIdx.x == 0) sums[b] = (int)s;
-}
-
-__global__ void __launch_bounds__(kSpineThreads)
-scan_spine(int* sums, long long num_blocks) {
-  unsigned carry = 0;
-  for (long long c = 0; c < num_blocks; c += kSpineTile) {
-    const long long left = num_blocks - c;
-    carry += scan_tile<kSpineThreads>(sums + c, sums + c,
-                                      left < kSpineTile ? left : kSpineTile,
-                                      carry);
+  unsigned s = 0;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) s += v[i];
+  unsigned total;
+  unsigned p = gst::block_exclusive<kThreads>(s, &total);
+  if (threadIdx.x < 32) {
+    const unsigned base = lookback(status, t, total, epoch);
+    if (threadIdx.x == 0) s_base = base;
   }
-}
+  __syncthreads();
+  p += s_base;
 
-__global__ void __launch_bounds__(kThreads)
-scan_tiles(const int* __restrict__ in, int* __restrict__ out,
-           const int* __restrict__ sums, long long n) {
-  const long long b = blockIdx.x;
-  scan_tile<kThreads>(in + b * kTile, out + b * kTile, tile_count(n, b),
-                      (unsigned)sums[b]);
+  unsigned w[kItems];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    w[i] = p;
+    p += v[i];
+  }
+  if (whole) {
+    int4* dst = reinterpret_cast<int4*>(out + first);
+    dst[0] = make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+    dst[1] = make_int4((int)w[4], (int)w[5], (int)w[6], (int)w[7]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      if (first + i < n) out[first + i] = (int)w[i];
+    }
+  }
 }
 
 }  // namespace
 
-// Three launches on `stream`; `sums` is scratch for the block sums, of
-// num_sums >= ceil(n / kTile) int32.  Returns the first cudaGetLastError()
-// that is not 0, else 0.
-extern "C" int gst_exclusive_scan(const void* in, void* out, void* sums,
-                                  long long n, long long num_sums,
-                                  void* stream) {
-  const long long blocks = (n + kTile - 1) / kTile;
-  if (n <= 0 || num_sums < blocks) return (int)cudaErrorInvalidValue;
-  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* x = static_cast<const int*>(in);
-  int* y = static_cast<int*>(out);
-  int* b = static_cast<int*>(sums);
-  reduce_tiles<<<(unsigned)blocks, kThreads, 0, s>>>(x, b, n);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  scan_spine<<<1, kSpineThreads, 0, s>>>(b, blocks);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  scan_tiles<<<(unsigned)blocks, kThreads, 0, s>>>(x, y, b, n);
+// One launch on `stream`.  `scratch` is the caller's zeroed buffer for
+// this device and stream: a ticket word (8 bytes) then one 64-bit status
+// word per tile, of scratch_tiles >= ceil(n / kTile) tiles; `epoch`, in
+// [1, 2^30), must differ from every epoch the buffer has seen since it was
+// last zeroed.  Returns the first CUDA error (0 on success).
+extern "C" int gst_exclusive_scan(const void* in, void* out, long long n,
+                                  void* scratch, long long scratch_tiles,
+                                  unsigned epoch, void* stream) {
+  const long long tiles = (n + kTile - 1) / kTile;
+  if (n <= 0 || scratch_tiles < tiles || epoch == 0 || epoch > kEpochMask) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  chained_scan<<<(unsigned)tiles, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const int*>(in), static_cast<int*>(out), n,
+      reinterpret_cast<unsigned*>(words), words + 1, epoch,
+      (unsigned)tiles);
   return (int)cudaGetLastError();
 }

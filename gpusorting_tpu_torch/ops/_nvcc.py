@@ -102,11 +102,18 @@ def check(op: str, name: str, t: torch.Tensor, shape: tuple,
         raise ValueError(f"{op}: {name} must be {align}-byte aligned")
 
 
-def launch(op: str, fn, *args, device: torch.device) -> None:
-    """Call the C entry point `fn(*args, stream)` on the current stream of
-    `device`; raise if it reports a CUDA error."""
-    with torch.cuda.device(device):
+def launch(op: str, fn, *args, device: torch.device,
+           stream: int | None = None) -> None:
+    """Call the C entry point `fn(*args, stream)` on `stream` (a CUDA
+    stream handle; by default the current stream of `device`); raise if it
+    reports a CUDA error.  The device is made current for the call only
+    where it is not already."""
+    if stream is None:
         stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
         rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {rc}")

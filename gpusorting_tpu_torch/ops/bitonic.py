@@ -9,8 +9,14 @@ Port of `gpusorting_tpu/ops/bitonic.py`.  For N = 2^L elements:
 
   * strides below the tile run in `local_stages` (kernel `csrc/bitonic.cu`,
     replacing the Pallas `_local_stages_kernel`): one block per tile runs a
-    (j, k) schedule on the tile's planes in shared memory — first every
-    level inside the tile, later the merge tail of each level above it;
+    (j, k) schedule on the tile's planes — first every level inside the
+    tile, later the merge tail of each level above it.  `stage_runs`
+    splits the schedule into runs that each stay in registers: strides
+    below a warp's WARP_SPAN (each thread holds WARP_ITEMS consecutive
+    elements: the short strides in the thread, the rest by warp shuffles),
+    or up to GROUP_BITS longer strides (the thread's elements spread over
+    their bits).  The tile waits in shared memory between runs, with one
+    barrier between two runs;
   * each stride of at least one tile runs as one `global_stage` (same
     source, replacing `_global_stage_kernel`) over the whole array.
 
@@ -40,6 +46,15 @@ MAX_OPS = 4
 MAX_N = 1 << 30
 INT32_MAX = 0x7FFFFFFF
 SOURCE = _nvcc.CSRC / "bitonic.cu"
+# csrc/bitonic.cu's in-tile kernel: WARP_ITEMS elements a thread in
+# registers (kItems), consecutive in a warp run, so a warp spans WARP_SPAN
+# elements (32 * kItems); a long-stride run spreads them over GROUP_BITS
+# index bits (kGroupBits); at most LOCAL_THREADS[num_ops] threads a block
+# (kLocalThreads<NOPS>)
+WARP_ITEMS = 8
+GROUP_BITS = 3
+WARP_SPAN = 32 * WARP_ITEMS
+LOCAL_THREADS = {1: 1024, 2: 1024, 3: 512, 4: 512}
 
 
 def _powers_desc(top: int):
@@ -139,17 +154,88 @@ def local_stages_plain(planes, sched: torch.Tensor, num_keys: int,
     return [f.view(p.shape) for f, p in zip(flat, planes)]
 
 
+def stage_runs(sched) -> list:
+    """Split a (S, 2) (j, k) schedule into the in-tile kernel's runs, each
+    of which stays in registers: a maximal run of consecutive stages whose
+    strides are all below the warp's span of WARP_SPAN elements (registers
+    and shuffles), or a run of consecutive stages whose strides are all at
+    least the span and take at most GROUP_BITS distinct values (registers,
+    the thread's elements spread over those strides' bits).  Returns
+    [(start, end), ...] that cover the stages in order."""
+    runs = []
+    prev = None
+    strides = set()
+    for s, (j, _k) in enumerate(np.asarray(sched).reshape(-1, 2).tolist()):
+        in_warp = j < WARP_SPAN
+        if in_warp == prev and (in_warp or len(strides | {j}) <= GROUP_BITS):
+            runs[-1][1] = s + 1
+            strides.add(j)
+        else:
+            runs.append([s, s + 1])
+            strides = {j}
+        prev = in_warp
+    return [tuple(r) for r in runs]
+
+
+# the run table's kinds (csrc/bitonic.cu kRun*): a generic warp run, a
+# generic long-stride run, and the three patterns the network's own
+# schedules are made of, which the kernel runs with compile-time strides
+RUN_WARP, RUN_GROUP, RUN_SORT256, RUN_MERGE, RUN_GROUP_MERGE = range(5)
+_SORT256 = [(j, k) for k in (2, 4, 8, 16, 32, 64, 128, 256)
+            for j in _powers_desc(k // 2)]
+
+
+def run_table(sched) -> np.ndarray:
+    """The in-tile kernel's (R, 4) int32 run table: (start, end, kind, k)
+    for each run of `stage_runs`; k is the one k of a merge kind's stages,
+    else 0."""
+    stages = np.asarray(sched).reshape(-1, 2).tolist()
+    rows = []
+    for a, b in stage_runs(sched):
+        run = [tuple(x) for x in stages[a:b]]
+        k = run[0][1]
+        if run == _SORT256:
+            kind, k = RUN_SORT256, 0
+        elif run == [(j, k) for j in _powers_desc(WARP_SPAN // 2)]:
+            kind = RUN_MERGE
+        elif run[0][0] < WARP_SPAN:
+            kind, k = RUN_WARP, 0
+        elif len(run) == GROUP_BITS and run == [
+                (run[0][0] >> i, k) for i in range(GROUP_BITS)]:
+            kind = RUN_GROUP_MERGE
+        else:
+            kind, k = RUN_GROUP, 0
+        rows.append((a, b, kind, k))
+    return np.array(rows, np.int32).reshape(-1, 4)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
-    lib.gst_local_stages.argtypes = ([ctypes.c_void_p] * 9
-                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.gst_local_stages.argtypes = (
+        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.gst_local_stages.restype = ctypes.c_int
     lib.gst_global_stage.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 3 + [
         ctypes.c_void_p]
     lib.gst_global_stage.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _device_schedule(dev: torch.device, tile_elems: int,
+                     sched_bytes: bytes) -> tuple:
+    """The schedule (checked) and its run table on `dev`, copied once per
+    device, tile and schedule: one flat int32 tensor, the (R, 4) run table
+    first (16-byte rows), then the (S, 2) stages.  Returns (tensor, S, R)."""
+    sched = np.frombuffer(sched_bytes, np.int32).reshape(-1, 2)
+    for j, k in sched.tolist():
+        _check_stage("local_stages", j, k, 1, tile_elems)
+    runs = run_table(sched)
+    table = torch.from_numpy(np.concatenate([runs.reshape(-1),
+                                             sched.reshape(-1)])).to(dev)
+    return table, sched.shape[0], runs.shape[0]
 
 
 def local_stages(planes, sched: torch.Tensor, num_keys: int,
@@ -159,8 +245,9 @@ def local_stages(planes, sched: torch.Tensor, num_keys: int,
     on every tile of `tile_rows` rows of 1-4 (rows, 128) int32 planes.
     Returns new planes; the inputs are not written.
 
-    CUDA planes launch `csrc/bitonic.cu` once (or raise), with the schedule
-    copied to the card; CPU planes take `local_stages_plain`."""
+    CUDA planes launch `csrc/bitonic.cu` once (or raise): the schedule and
+    its run table (`run_table`) go to the card once per device, tile and
+    schedule, and stay there.  CPU planes take `local_stages_plain`."""
     _check_planes("local_stages", planes, num_keys, tile_rows)
     if planes[0].device.type == "cpu":
         return local_stages_plain(planes, sched, num_keys, tile_rows)
@@ -175,19 +262,20 @@ def local_stages(planes, sched: torch.Tensor, num_keys: int,
     if sched.ndim != 2 or sched.shape[1] != 2 or sched.dtype != torch.int32:
         raise ValueError(f"local_stages: schedule must be (S, 2) int32, got "
                          f"{sched.dtype}{tuple(sched.shape)}")
-    for j, k in sched.tolist():
-        _check_stage("local_stages", j, k, 1, tile_elems)
     if rows * LANES > MAX_N:
         raise ValueError(f"local_stages: {rows * LANES} elements exceed "
                          f"{MAX_N}")
-    sched_dev = sched.contiguous().to(dev)
+    table, num_stages, num_runs = _device_schedule(
+        dev, tile_elems, sched.cpu().contiguous().numpy().tobytes())
     outs = [torch.empty_like(p) for p in planes]
     spare = [0] * (MAX_OPS - len(planes))
     _nvcc.launch("local_stages", _library().gst_local_stages,
                  *[p.data_ptr() for p in planes], *spare,
-                 *[o.data_ptr() for o in outs], *spare, sched_dev.data_ptr(),
-                 sched.shape[0], len(planes), num_keys, rows // tile_rows,
-                 tile_elems, device=dev)
+                 *[o.data_ptr() for o in outs], *spare,
+                 table.data_ptr() + 16 * num_runs, num_stages,
+                 table.data_ptr(), num_runs,
+                 len(planes), num_keys, rows // tile_rows, tile_elems,
+                 device=dev)
     local_stages.launches += 1
     return outs
 

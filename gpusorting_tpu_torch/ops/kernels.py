@@ -10,8 +10,10 @@ Port of `gpusorting_tpu/ops/kernels.py`:
   tile_histogram4  <- `_tile_hist4_kernel` (kernels.py:144), kernel
                       `csrc/tile_hist4.cu`
   exclusive_scan   <- `_scan_kernel` (kernels.py:209), kernel
-                      `csrc/exclusive_scan.cu` (reduce-then-scan, for the
-                      same reason)
+                      `csrc/exclusive_scan.cu` (one launch of a chained
+                      scan with decoupled lookback: the TPU kernel's
+                      running sum across an in-order grid has no CUDA
+                      counterpart either)
 
 Codes are the port's biased int32 carriers (`core/codec.py`): the digit at
 `shift` is `((x ^ 0x80000000) >> shift) & 15`.  Each wrapper launches its
@@ -184,38 +186,66 @@ def exclusive_scan_plain(values: torch.Tensor) -> torch.Tensor:
 def _scan_library() -> ctypes.CDLL:
     lib = _nvcc.load(SCAN_SOURCE)
     fn = lib.gst_exclusive_scan
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p,
+                                           ctypes.c_longlong, ctypes.c_uint,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+# The chained scan's scratch, one per (device, stream): [buffer, epoch].
+# The buffer is an 8-byte ticket and one 64-bit status word per tile,
+# zeroed when allocated; each call on the stream takes the next epoch, so
+# the words an earlier call left never read as this call's, and the buffer
+# is zeroed again only when the 30-bit epoch wraps.  Calls on one stream
+# run in order, so they share it; calls on two streams never do.
+_SCAN_SCRATCH: dict = {}
+_SCAN_EPOCHS = (1 << 30) - 1
+
+
+def _scan_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
+    """(buffer, epoch) for one scan of `tiles` tiles on `stream` (the
+    current stream's handle)."""
+    key = (dev.index, stream)
+    entry = _SCAN_SCRATCH.get(key)
+    if entry is None or entry[0].numel() < 1 + tiles:
+        # allocated on `stream` (the current one), which alone uses it
+        entry = [torch.zeros(1 + max(tiles, 1024), dtype=torch.int64,
+                             device=dev), 0]
+        _SCAN_SCRATCH[key] = entry
+    entry[1] += 1
+    if entry[1] > _SCAN_EPOCHS:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
 
 
 def exclusive_scan(values: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum of a 1-D int32 tensor, wrapping like int32.
 
-    A CUDA tensor runs `csrc/exclusive_scan.cu`, three launches (reduce,
-    spine, scan), all counted in `exclusive_scan.launches` (or raises); a
-    CPU tensor takes `exclusive_scan_plain`."""
+    A CUDA tensor runs `csrc/exclusive_scan.cu`, one launch of a chained
+    scan with decoupled lookback, counted in `exclusive_scan.launches` (or
+    raises); a CPU tensor takes `exclusive_scan_plain`."""
     if values.ndim != 1:
         raise ValueError(f"exclusive_scan takes a 1-D tensor, got "
                          f"{tuple(values.shape)}")
-    if values.device.type == "cpu":
+    dev = values.device
+    if dev.type == "cpu":
         check_int32("exclusive_scan", values)
         return exclusive_scan_plain(values)
-    if values.device.type != "cuda":
-        raise ValueError(f"exclusive_scan: unsupported device "
-                         f"{values.device}")
-    dev = values.device
+    if dev.type != "cuda":
+        raise ValueError(f"exclusive_scan: unsupported device {dev}")
     n = values.shape[0]
     _nvcc.check("exclusive_scan", "values", values, (n,), dev)
     out = torch.empty_like(values)
     if n == 0:
         return out
-    sums = torch.empty(-(-n // SCAN_TILE), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, epoch = _scan_scratch(dev, stream, -(-n // SCAN_TILE))
     _nvcc.launch("exclusive_scan", _scan_library().gst_exclusive_scan,
-                 values.data_ptr(), out.data_ptr(), sums.data_ptr(), n,
-                 sums.numel(), device=dev)
-    exclusive_scan.launches += 3
+                 values.data_ptr(), out.data_ptr(), n, scratch.data_ptr(),
+                 scratch.numel() - 1, epoch, device=dev, stream=stream)
+    exclusive_scan.launches += 1
     return out
 
 

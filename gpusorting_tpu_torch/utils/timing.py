@@ -51,6 +51,47 @@ def device_time_ms(fn, iters: int = 5, warmup: int = 1,
     return times
 
 
+def queued_device_time_ms(fn, iters: int = 100, warmup: int = 3,
+                          spin_cycles: int = 100_000_000,
+                          device: torch.device | str = "cuda") -> float:
+    """Device time (ms) per call of `fn()`: `iters` calls queued behind a
+    `torch.cuda._sleep` spin of `spin_cycles` clocks, so the event pair
+    brackets the device's work and not the host's time to issue it (the
+    spin must outlast the host's `iters` calls; 10^8 clocks is about 50 ms
+    at 2 GHz)."""
+    dev = _require_cuda(device)
+    with torch.cuda.device(dev):
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_time_ms(fn, iters: int = 1000, warmup: int = 3,
+                 device: torch.device | str = "cuda") -> float:
+    """Host time (ms) per call of `fn()`: `time.perf_counter` over `iters`
+    calls with the device idle before them; the device finishes after the
+    clock stops."""
+    dev = _require_cuda(device)
+    with torch.cuda.device(dev):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize(dev)
+    return (t1 - t0) / iters * 1e3
+
+
 def batch_timing(sort_fn, n: int, batch: int = 10, seed: int = 10,
                  entropy: EntropyPreset = EntropyPreset.E100,
                  key_dtype: torch.dtype = torch.uint32,

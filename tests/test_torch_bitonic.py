@@ -134,6 +134,121 @@ def test_stage_checks():
         bitonic.global_stage(p + [p[0].float()], 1024, 2048, 1, 8)
 
 
+# ---- the in-tile kernel's run table ----------------------------------------
+
+
+def _schedules(tile_elems):
+    return {"in_tile": bitonic.in_tile_schedule(tile_elems),
+            "tail_2": bitonic.tail_schedule(tile_elems, 2 * tile_elems),
+            "tail_4": bitonic.tail_schedule(tile_elems, 4 * tile_elems)}
+
+
+@pytest.mark.parametrize("which", ["in_tile", "tail_2", "tail_4"])
+@pytest.mark.parametrize("tile_log", range(7, 16))
+def test_stage_runs_cover_schedule(tile_log, which):
+    """The runs cover the schedule in order, each stage once; each run's
+    strides lie in one class (below the warp's span: registers and
+    shuffles; at least it: registers by the group's bits, at most
+    GROUP_BITS distinct strides)."""
+    sched = _schedules(1 << tile_log)[which]
+    runs = bitonic.stage_runs(sched)
+    strides = sched[:, 0].tolist()
+    assert [s for a, b in runs for s in range(a, b)] == list(range(
+        len(strides)))
+    classes = []
+    for a, b in runs:
+        assert a < b
+        in_warp = {j < bitonic.WARP_SPAN for j in strides[a:b]}
+        assert len(in_warp) == 1
+        classes.append(in_warp.pop())
+        if not classes[-1]:      # long strides: at most GROUP_BITS bits
+            assert len(set(strides[a:b])) <= bitonic.GROUP_BITS
+    # warp runs are maximal; a long-stride run ends where a new stride
+    # would make one bit too many
+    for (a, b), (c, d), x, y in zip(runs, runs[1:], classes, classes[1:]):
+        assert x != y or (not x and len(set(strides[a:d])) >
+                          bitonic.GROUP_BITS)
+    # a tile within one warp's span is one run: no shared memory
+    if (1 << tile_log) <= bitonic.WARP_SPAN:
+        assert runs == [(0, len(strides))]
+
+
+def test_stage_runs_of_the_h100_tiles():
+    """The counts the kernel's design rests on: at a 2^15 tile the in-tile
+    pass is 120 stages, 42 inside a thread, 50 across a warp and 28 of long
+    strides, in 8 warp runs and 12 long-stride runs (so 19 barriers); a
+    tail is 7 long strides in 3 runs, then one warp run of 8.  At 2^13 (4
+    planes) a tail is 5 long strides in 2 runs, then 8."""
+    assert bitonic.WARP_SPAN == 32 * bitonic.WARP_ITEMS == 256
+    assert bitonic.WARP_ITEMS == 1 << bitonic.GROUP_BITS
+    sched = bitonic.in_tile_schedule(1 << 15)
+    j = sched[:, 0]
+    assert (len(j), int((j < bitonic.WARP_ITEMS).sum()),
+            int(((j >= bitonic.WARP_ITEMS) & (j < bitonic.WARP_SPAN)).sum()),
+            int((j >= bitonic.WARP_SPAN).sum())) == (120, 42, 50, 28)
+    runs = bitonic.stage_runs(sched)
+    warp = [r for r in runs if sched[r[0], 0] < bitonic.WARP_SPAN]
+    assert (len(warp), len(runs) - len(warp)) == (8, 12)
+    assert bitonic.stage_runs(bitonic.tail_schedule(1 << 15, 1 << 16)) == [
+        (0, 3), (3, 6), (6, 7), (7, 15)]
+    assert bitonic.stage_runs(bitonic.tail_schedule(1 << 13, 1 << 20)) == [
+        (0, 3), (3, 5), (5, 13)]
+    assert bitonic.stage_runs(torch.zeros((0, 2), dtype=torch.int32)) == []
+
+
+@pytest.mark.parametrize("tile_log", [8, 10, 13, 14, 15])
+def test_run_table_kinds(tile_log):
+    """The run table names the network's own patterns, which the kernel
+    runs with compile-time strides: the first 36 stages of an in-tile pass
+    (levels 2 .. 256), each level's last 8 strides (128 .. 1, one k), and
+    three halving long strides with one k; everything else is generic."""
+    te = 1 << tile_log
+    in_tile = bitonic.run_table(bitonic.in_tile_schedule(te))
+    levels = range(9, tile_log + 1)
+    want = [(0, 36, bitonic.RUN_SORT256, 0)]
+    s = 36
+    for m in levels:                      # level k = 2^m above the span
+        longs = list(range(m - 1, 7, -1))
+        while longs:
+            g, longs = longs[:3], longs[3:]
+            kind = (bitonic.RUN_GROUP_MERGE if len(g) == 3
+                    else bitonic.RUN_GROUP)
+            want.append((s, s + len(g), kind,
+                         1 << m if kind == bitonic.RUN_GROUP_MERGE else 0))
+            s += len(g)
+        want.append((s, s + 8, bitonic.RUN_MERGE, 1 << m))
+        s += 8
+    assert [tuple(r) for r in in_tile.tolist()] == want
+    tail = bitonic.run_table(bitonic.tail_schedule(te, 4 * te))
+    assert tail[-1].tolist() == [tail[-1][0], tail[-1][0] + 8,
+                                 bitonic.RUN_MERGE, 4 * te]
+    # a schedule in no pattern: generic runs
+    odd = torch.tensor([[1, 4], [256, 1024], [2, 8]], dtype=torch.int32)
+    assert bitonic.run_table(odd).tolist() == [
+        [0, 1, bitonic.RUN_WARP, 0], [1, 2, bitonic.RUN_GROUP, 0],
+        [2, 3, bitonic.RUN_WARP, 0]]
+    small = bitonic.run_table(bitonic.in_tile_schedule(128))
+    assert small.tolist() == [[0, 28, bitonic.RUN_WARP, 0]]
+
+
+def test_device_schedule_is_checked_and_kept():
+    """The wrapper's schedule table: the (R, 4) run table, then the (S, 2)
+    stages, built and checked once per device, tile and schedule."""
+    sched = bitonic.tail_schedule(1024, 4096)
+    key = sched.numpy().tobytes()
+    table, s, r = bitonic._device_schedule(torch.device("cpu"), 1024, key)
+    assert (s, r) == (10, 2)
+    assert table.dtype == torch.int32 and table.shape == (4 * r + 2 * s,)
+    assert torch.equal(table[4 * r:].view(s, 2), sched)
+    # (512, 256) a generic long-stride run, then the level's last 8
+    assert table[:4 * r].view(r, 4).tolist() == [
+        [0, 2, bitonic.RUN_GROUP, 0], [2, 10, bitonic.RUN_MERGE, 4096]]
+    again = bitonic._device_schedule(torch.device("cpu"), 1024, key)
+    assert again[0] is table
+    with pytest.raises(ValueError, match="stage"):
+        bitonic._device_schedule(torch.device("cpu"), 512, key)
+
+
 # ---- the network ------------------------------------------------------------
 
 

@@ -168,7 +168,7 @@ def test_tile_histogram4_kernel_matches_plain(cuda, kind, tile_rows):
     assert kernels.tile_histogram4.launches == before + 8
 
 
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 16 * 4097,
+@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 16 * 4097, 1 << 20,
                                (1 << 24) + 3])
 def test_exclusive_scan_kernel_matches_plain(cuda, n):
     g = torch.Generator().manual_seed(n)
@@ -178,10 +178,42 @@ def test_exclusive_scan_kernel_matches_plain(cuda, n):
     got = kernels.exclusive_scan(x)
     torch.cuda.synchronize()
     assert torch.equal(got, kernels.exclusive_scan_plain(x))
-    assert kernels.exclusive_scan.launches == before + 3
+    # one chained-scan launch a call
+    assert kernels.exclusive_scan.launches == before + 1
     small = (x & 15).contiguous()            # no wrap: equals cumsum
     assert torch.equal(kernels.exclusive_scan(small).long(),
                        torch.cumsum(small.long(), 0) - small.long())
+
+
+def test_exclusive_scan_scratch_resets_between_calls(cuda):
+    """Back-to-back scans on one stream, with no synchronisation between
+    them, each reading the status words the one before left; a scan on a
+    second stream; and the epoch's wrap, which zeroes the scratch."""
+    g = torch.Generator().manual_seed(5)
+    xs = [torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                        generator=g).to(cuda)
+          for n in (1 << 20, 5000, 1 << 20, 2049, 1 << 22)]
+    before = kernels.exclusive_scan.launches
+    got = [kernels.exclusive_scan(x) for x in xs]
+    torch.cuda.synchronize()
+    assert kernels.exclusive_scan.launches == before + len(xs)
+    for x, y in zip(xs, got):
+        assert torch.equal(y, kernels.exclusive_scan_plain(x))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = [kernels.exclusive_scan(x) for x in xs[:2]]
+    main = [kernels.exclusive_scan(x) for x in xs[:2]]
+    torch.cuda.synchronize()
+    for x, a, b in zip(xs, on_side, main):
+        assert torch.equal(a, kernels.exclusive_scan_plain(x))
+        assert torch.equal(b, a)
+    key = (xs[0].device.index, torch.cuda.current_stream().cuda_stream)
+    kernels._SCAN_SCRATCH[key][1] = kernels._SCAN_EPOCHS
+    for x in xs[:3]:
+        assert torch.equal(kernels.exclusive_scan(x),
+                           kernels.exclusive_scan_plain(x))
+    assert kernels._SCAN_SCRATCH[key][1] == 3
 
 
 @pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 200])
@@ -240,10 +272,10 @@ def test_radix_engines_match_torch_sort(cuda, n):
     sk, sv = ffx.sort_pairs_ffx(k, v)
     assert torch.equal(sv, v[want.indices])
     torch.cuda.synchronize()
-    # five sorts of 8 passes: 8 Upsweeps, 24 scan launches, 8 downsweeps
+    # five sorts of 8 passes: 8 Upsweeps, 8 one-launch scans, 8 downsweeps
     assert (kernels.tile_histogram4.launches - counts[0],
             kernels.exclusive_scan.launches - counts[1],
-            rts.downsweep.launches - counts[2]) == (40, 120, 40)
+            rts.downsweep.launches - counts[2]) == (40, 40, 40)
 
 
 def test_public_pallas_route_on_card(cuda):
@@ -377,7 +409,8 @@ def test_binning_kernel_matches_plain(cuda, kind, n):
 
 
 @pytest.mark.parametrize("tile_rows,tiles", [(1, 1), (8, 1100), (None, 4)])
-@pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (4, 2)])
+@pytest.mark.parametrize("num_ops,num_keys",
+                         [(1, 1), (4, 2), (2, 1), (2, 2), (3, 2)])
 def test_local_stages_kernel_matches_plain(cuda, tile_rows, tiles, num_ops,
                                            num_keys):
     if tile_rows is None:     # the largest tile of an H100's 227 KB budget

@@ -107,7 +107,10 @@ def test_tile_histogram4_matches_jax(shift):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("n", [1, 127, 128, 1000, 16 * 3])
+@pytest.mark.parametrize("n", [1, 127, 128, 1000, 16 * 3,
+                               kernels.SCAN_TILE - 1, kernels.SCAN_TILE,
+                               kernels.SCAN_TILE + 1,
+                               2 * kernels.SCAN_TILE + 3, 1 << 20])
 def test_exclusive_scan_matches_jax(n):
     # values over the whole int32 range, so the sums wrap
     x = np.random.default_rng(n).integers(-2**31, 2**31, n, dtype=np.int32)
@@ -115,6 +118,20 @@ def test_exclusive_scan_matches_jax(n):
     got = kernels.exclusive_scan(torch.from_numpy(x))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n", [kernels.SCAN_TILE, kernels.SCAN_TILE + 1,
+                               1 << 20])
+def test_exclusive_scan_wraps_like_jax(n):
+    # int32 extremes, so the running sum wraps on nearly every element
+    rng = np.random.default_rng(n + 1)
+    x = np.where(rng.integers(0, 3, n) == 0, np.int32(-2**31),
+                 np.int32(2**31 - 1)).astype(np.int32)
+    want = np.asarray(jkernels.exclusive_scan(jnp.asarray(x)))
+    got = kernels.exclusive_scan(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    ref = (np.cumsum(x.astype(np.int64)) - x) & 0xFFFFFFFF
+    np.testing.assert_array_equal(got.view(np.uint32), ref.astype(np.uint32))
 
 
 @pytest.fixture(scope="module")
