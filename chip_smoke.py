@@ -46,12 +46,15 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      call;
   7. the radix16 and network kernels against their plain versions at
      n = 2^28, on uniform, E020 and all-equal keys, each bit for bit:
-     global_histogram (also on a length that is not a multiple of 128); one
-     fused binning_pass on 1, 2 and 3 planes at shifts 0 and 28 with its
-     cursors_out, and the same pass as the adversarial_segments chain;
-     local_stages (the whole in-tile schedule and one tail schedule) on 1
-     plane (1 key), 2 planes (2 keys), 3 planes (2 keys) and 4 planes (2
-     keys), each at its tile, on 2 planes (1 key) with a tie-heavy key
+     global_histogram (also on a length that is not a multiple of 128);
+     binning_pass on 1, 2 and 3 planes at shifts 0 and 28 with its
+     cursors_out, fused and as the adversarial_segments chain, at tiles of
+     1, 3, 32 and 512 rows (the kernel cuts a range into partitions of its
+     own, so the 3-row range and the 1-row segments end in ragged ones),
+     also on two-digit keys, and 4 passes back to back on one stream and 2
+     on a second stream; local_stages (the whole in-tile schedule and one
+     tail schedule) on 1 plane (1 key), 2 planes (2 keys), 3 planes (2
+     keys) and 4 planes (2 keys), each at its tile, on 2 planes (1 key) with a tie-heavy key
      plane and a distinct rider, and at an 8-row tile; global_stage at
      strides of one and of four tiles (1, 3 and 4 planes);
   8. the Backend.PALLAS path at n = 2^28 for the variants this adds:
@@ -85,8 +88,10 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      their bounds, plain versions and the torch calls computing the same
      function; and each stitch call of layouts (c) and (d) at its shape,
      each held bit for bit against its plain version on the same operands;
- 13. the merge kernels (csrc/mergesweep.cu) and the binning pass's
-     digit-plane form against their plain versions at n = 2^28, on
+ 13. the merge kernels (merge_tail, the in-tile kernel of csrc/bitonic.cu
+     on the tail's schedule; hyper_stage, csrc/mergesweep.cu) and the
+     binning pass's digit-plane form against their plain versions at
+     n = 2^28, on
      uniform, E020 and all-equal keys, bit for bit: merge_tail on 1 plane
      (1 key), 3 planes (2 keys: pairs and argsort) and 4 planes (2 keys)
      at k below the tile, twice the tile and 2^28, each at its tile;
@@ -108,7 +113,9 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      switch on) beside radix16, device_radix and flat torch.sort;
      mergesweep's keys and pairs at segment lengths 2^20 .. 2^27 with the
      switch off and on, and at 2^28 (one segment: the flat sort); each new
-     kernel beside its bound and its plain version;
+     kernel beside its bound and its plain version, the merge tail on 1
+     plane and on 3 planes (2 keys) beside local_stages on the same
+     strides;
  16. the distributed sort's masking kernel (csrc/exchange_mask.cu) against
      its plain version at one rank's receive buffer in an 8-GPU sort of
      2^30 pairs (D = 8 blocks of 2^25), on 2 and 3 operands, under uniform
@@ -779,6 +786,54 @@ def main() -> int:
             new_err[kname] = max(new_err[kname], err)
             _require(torch.equal(g, w), f"{kname} != plain on {what}")
 
+    def check_binning(x, rides, name):
+        """One binning pass on 1, 2 and 3 planes at shifts 0 and 28, fused
+        and as the adversarial_segments chain, at tiles of 1, 3, 32 and 512
+        rows (and the tuning row's), each against one plain answer per
+        range: the kernel cuts each range into its own partitions, so the
+        3-row tiles' range (the first whole tiles) and the 1-row tiles'
+        segments end in ragged partitions."""
+        rows = N // LANES
+        groups = {}                     # rows used -> the tiles that use them
+        for tr in sorted({1, 3, 32, 512, r16_rows}):
+            groups.setdefault(rows // tr * tr, []).append(tr)
+        for used, tiles in groups.items():
+            planes = [y[:used * LANES].view(used, LANES)
+                      for y in (x,) + rides]
+            bases, _ = radix16._bases_all_passes(planes[0].reshape(-1))
+            for p in (0, 7):
+                shift = 4 * p
+                for ops in (planes[:1], planes[:2], planes):
+                    want, wcur = radix16.binning_pass_plain(
+                        ops, bases[p], shift, tiles[0])
+                    for tr in tiles:
+                        got, cur = radix16.binning_pass(ops, bases[p], shift,
+                                                        tr)
+                        check_new("binning_pass", got + [cur], want + [wcur],
+                                  f"{name} shift {shift}, {len(ops)} planes, "
+                                  f"{tr}-row tiles")
+                        del got
+                        segs = radix16.adversarial_segments(used * LANES, tr)
+                        bounds = sorted({0, used // tr} | set(segs))
+                        out, c = [torch.empty_like(y) for y in ops], bases[p]
+                        for a, b in zip(bounds[:-1], bounds[1:]):
+                            _, c = radix16.binning_pass(
+                                [y[a * tr:b * tr] for y in ops], c, shift, tr,
+                                out)
+                        check_new("binning_pass", out + [c], want + [wcur],
+                                  f"{name} shift {shift}, {len(ops)} planes, "
+                                  f"{tr}-row tiles, segments {segs}")
+                        del out
+                    del want
+            emit(phase="kernel_vs_plain", kernel="binning_pass", input=name,
+                 shifts=[0, 28], planes=[1, 2, 3], n=used * LANES,
+                 tile_rows=tiles, partition=binning_part,
+                 ragged_last_partition=(used * LANES) % binning_part != 0,
+                 segments="adversarial_segments at each tile",
+                 bit_exact=True)
+            del planes
+
+    binning_part = radix16._library().gst_binning_partition()
     idx = torch.arange(N, dtype=torch.int32, device=dev)
     for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
                                  ("E020", gstt.EntropyPreset.E020, False),
@@ -798,35 +853,7 @@ def main() -> int:
         emit(phase="kernel_vs_plain", kernel="global_histogram", input=name,
              lengths=[N, N - 77], bit_exact=True)
 
-        planes = [x.view(-1, LANES), rides[0].view(-1, LANES),
-                  rides[1].view(-1, LANES)]
-        bases, _ = radix16._bases_all_passes(x)
-        T16 = N // (r16_rows * LANES)
-        segs = radix16.adversarial_segments(N, r16_rows)
-        bounds = sorted({0, T16} | set(segs))
-        for p in (0, 7):
-            shift = 4 * p
-            for ops in (planes[:1], planes[:2], planes):
-                got, cur = radix16.binning_pass(ops, bases[p], shift,
-                                                r16_rows)
-                want, wcur = radix16.binning_pass_plain(ops, bases[p], shift,
-                                                        r16_rows)
-                check_new("binning_pass", got + [cur], want + [wcur],
-                          f"{name} shift {shift}, {len(ops)} planes")
-                out, c = [torch.empty_like(y) for y in ops], bases[p]
-                for a, b in zip(bounds[:-1], bounds[1:]):
-                    _, c = radix16.binning_pass(
-                        [y[a * r16_rows:b * r16_rows] for y in ops], c, shift,
-                        r16_rows, out)
-                check_new("binning_pass", out + [c], got + [cur],
-                          f"{name} shift {shift}, {len(ops)} planes, "
-                          f"segments {segs}")
-                emit(phase="kernel_vs_plain", kernel="binning_pass",
-                     input=name, shift=shift, planes=len(ops), n=N,
-                     tile_rows=r16_rows, segments=list(segs),
-                     bit_exact=True)
-                del got, want, out
-        del planes
+        check_binning(x, rides, name)
 
         # 3 planes (2 keys) is the (code, index, payload) of pairs and
         # argsort, 4 the 64-bit pairs', each at its own tile; (2, 1) a key
@@ -875,6 +902,39 @@ def main() -> int:
         del x, rides
         free()
     del idx
+    free()
+
+    # two digits at every shift (u32 0 and 0xFFFFFFFF): every item of a warp
+    # ties with about half the others
+    gen7 = torch.Generator(device=dev)
+    gen7.manual_seed(SEED + 7)
+    x = torch.randint(0, 2, (N,), generator=gen7, device=dev,
+                      dtype=torch.int32) * -1 ^ codec.SIGN
+    rides = tuple(prng.hybrid_taus_bits(N, SEED + j, device=dev)
+                  .view(torch.int32) for j in (12, 13))
+    check_binning(x, rides, "two_digit")
+    # eight passes back to back on one stream with no synchronisation, each
+    # on the status words the one before left, then on a second stream
+    x2 = x.view(-1, LANES)
+    bases, _ = radix16._bases_all_passes(x)
+    want = [radix16.binning_pass_plain([x2], bases[p], 4 * p, r16_rows)
+            for p in (0, 7)]
+    got = [radix16.binning_pass([x2], bases[p], 4 * p, r16_rows)
+           for p in (0, 7, 0, 7)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got += [radix16.binning_pass([x2], bases[p], 4 * p, r16_rows)
+                for p in (0, 7)]
+    torch.cuda.synchronize()
+    for i, (go, gc) in enumerate(got):
+        wo, wc = want[i % 2]
+        check_new("binning_pass", go + [gc], wo + [wc],
+                  f"two_digit call {i} of 4 back to back and 2 on a second "
+                  "stream")
+    emit(phase="kernel_vs_plain", kernel="binning_pass", input="two_digit",
+         calls="4 back to back, 2 on a second stream", bit_exact=True)
+    del x, x2, rides, want, got
     free()
 
     # ---- phase 8: the new PALLAS variants through the public entry points
@@ -1865,19 +1925,35 @@ def main() -> int:
     # bytes: the plane read and written once; operations: 4 32-bit
     # operations a pair and stage at the card's 32-bit non-tensor peak
     stage_ops_ms = (N // 2) * 4 / PEAK_OPS_32 * 1e3
-    tail_stages = te1.bit_length() - 1
     hyper_stages = (2 * j_hi // j_lo).bit_length() - 1
     plane_ms = 8 * N / bw * 1e3
     work = [x.clone().view(-1, LANES)]
-    last_times = {
-        "merge_tail": dict(
-            ms=median_ms(lambda: mergesweep.merge_tail(work, N, tr1, 1)),
+    last_times = {}
+    # the merge tail at k = 2^28 on 1 plane (1 key) and 3 planes (2 keys:
+    # pairs and argsort), each beside the network's own tail (local_stages
+    # on the same strides, new planes out) timed in turn
+    for num_ops, num_keys in ((1, 1), (3, 2)):
+        tr = bitonic.network_tile_rows(dev, num_ops)
+        te = tr * LANES
+        mt = [x.clone().view(-1, LANES)] + [
+            payload.clone().view(-1, LANES) for _ in range(num_ops - 1)]
+        sched = bitonic.tail_schedule(te, N)
+        stages = sched.shape[0]
+        per_pair = 2 * (2 * num_keys - 1) + 2 * num_ops
+        ops_ms = stages * (N // 2) * per_pair / PEAK_OPS_32 * 1e3
+        bytes_ms = num_ops * plane_ms
+        suffix = "" if num_ops == 1 else f"_{num_ops}"
+        last_times["merge_tail" + suffix] = dict(
+            ms=median_ms(lambda: mergesweep.merge_tail(mt, N, tr, num_keys)),
+            local_stages_tail_ms=median_ms(lambda: bitonic.local_stages(
+                mt, sched, num_keys, tr)),
             plain_ms=median_ms(lambda: mergesweep.merge_tail_plain(
-                work, N, tr1, 1), iters=3),
-            stages=tail_stages,
-            bound_ms=max(plane_ms, tail_stages * stage_ops_ms),
-            bound_by=("bytes" if plane_ms >= tail_stages * stage_ops_ms
-                      else "operations")),
+                mt, N, tr, num_keys), iters=3),
+            stages=stages, planes=num_ops, num_keys=num_keys, tile_rows=tr,
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        del mt
+    last_times.update({
         "hyper_stage": dict(
             ms=median_ms(lambda: mergesweep.hyper_stage(
                 work, N, j_hi, j_lo, 1, cols)),
@@ -1887,7 +1963,7 @@ def main() -> int:
             bound_ms=max(plane_ms, hyper_stages * stage_ops_ms),
             bound_by=("bytes" if plane_ms >= hyper_stages * stage_ops_ms
                       else "operations")),
-    }
+    })
     rows = N // LANES
     cap_rows = splitsweep._cap_rows(rows, 1.35)
     bases = (torch.arange(16, dtype=torch.int32, device=dev)
@@ -2493,10 +2569,10 @@ def main() -> int:
                 "bound_by": times.get("bound_by", "bytes"),
                 "library_ms": times["library_ms"], "card": card}
 
-    def last_row(kname, replaces):
+    def last_row(kname, replaces, source="mergesweep.cu"):
         t = last_times[kname]
         return {"name": kname, "route": "cuda",
-                "source": "gpusorting_tpu_torch/csrc/mergesweep.cu",
+                "source": f"gpusorting_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": last_launches[kname],
                 "max_abs_err": merge_err[kname], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2553,6 +2629,12 @@ def main() -> int:
         dict(new_row("binning", "binning_pass", "binning.cu",
                      "gpusorting_tpu/ops/radix16.py:307",
                      new_times["binning_pass_1"]),
+             redesigned="one-read OneSweep partition of its own: warp "
+                        "multisplit, cp.async riders, one-warp lookback "
+                        "over epoch words",
+             partition=binning_part,
+             ms_3_planes=new_times["binning_pass_3"]["ms"],
+             bound_ms_3_planes=new_times["binning_pass_3"]["bound_ms"],
              digit_plane_launches=last_launches["binning_pass"],
              digit_plane_max_abs_err=merge_err["binning_digits"],
              digit_plane_ms=last_times["binning_digits_1"]["ms"],
@@ -2582,7 +2664,14 @@ def main() -> int:
          "plain_ms": row_times[tile_rows, 1]["fixup_plain_ms"],
          "bound_ms": row_times[tile_rows, 1]["fixup_bound_ms"],
          "bound_by": "bytes", "library_ms": None, "card": card},
-        last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91"),
+        dict(last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91",
+                      "bitonic.cu"),
+             redesigned="the in-tile network's register runs, in place",
+             local_stages_tail_ms=last_times["merge_tail"][
+                 "local_stages_tail_ms"],
+             **{f"{field}_3_planes": last_times["merge_tail_3"][field]
+                for field in ("ms", "local_stages_tail_ms", "plain_ms",
+                              "bound_ms")}),
         last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172"),
         {"name": "exchange_mask", "route": "cuda",
          "source": "gpusorting_tpu_torch/csrc/exchange_mask.cu",

@@ -28,7 +28,11 @@
 //                   runs the tile waits in dynamic shared memory (above
 //                   48 KB only after cudaFuncSetAttribute), one barrier
 //                   between two runs and none inside one.  It reads its
-//                   tile whole before it writes, so it may run in place.
+//                   tile whole before it writes, so it may run in place:
+//                   mergesweep's merge tail (replacing
+//                   gpusorting_tpu/ops/mergesweep.py:_merge_tail_kernel) is
+//                   this kernel, in place, on the schedule (j, k) for
+//                   j = min(k, tile)/2, ..., 1 (ops/mergesweep.py).
 //   global_stage  — one stage with j >= tile_elems.  One thread owns four
 //                   consecutive pairs: it reads both sides once, compares
 //                   and writes both, so each element is read and written

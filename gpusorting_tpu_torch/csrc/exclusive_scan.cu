@@ -22,7 +22,8 @@
 // A status word is 64 bits: the flag (aggregate or inclusive) and a 30-bit
 // epoch in the high half, the full 32-bit sum in the low half (the values
 // span the whole int32 range, so gst::chained_exclusive's 30-bit count
-// does not do here).  A word counts only if its epoch is the call's, so
+// does not do here; `gst::pack_word`, radix_common.cuh, shared with
+// binning.cu).  A word counts only if its epoch is the call's, so
 // words left by an earlier call read as "nothing published" with no
 // clearing: the wrapper owns one zeroed scratch buffer per device and
 // stream and hands each call the next epoch.  The ticket is the first
@@ -41,23 +42,14 @@
 
 namespace {
 
+using gst::kEpochAggregate;
+using gst::kEpochInclusive;
+using gst::kEpochMask;
+using gst::pack_word;
+
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-constexpr unsigned kEpochMask = (1u << 30) - 1u;
-constexpr unsigned kAggregate = 1u << 30;
-constexpr unsigned kInclusive = 2u << 30;
-
-__device__ __forceinline__ unsigned long long pack(unsigned flag,
-                                                   unsigned epoch,
-                                                   unsigned sum) {
-  return ((unsigned long long)(flag | epoch) << 32) | sum;
-}
-
-__device__ __forceinline__ unsigned long long load_word(
-    const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
 
 // Run by the 32 lanes of warp 0 for tile t with sum `total`: publishes it,
 // looks back, publishes the inclusive prefix; returns the sum of tiles
@@ -66,28 +58,26 @@ __device__ unsigned lookback(unsigned long long* status, long long t,
                              unsigned total, unsigned epoch) {
   const int lane = threadIdx.x & 31;
   if (t == 0) {
-    if (lane == 0) atomicExch(status, pack(kInclusive, epoch, total));
+    if (lane == 0) atomicExch(status, pack_word(kEpochInclusive, epoch, total));
     return 0u;
   }
-  if (lane == 0) atomicExch(status + t, pack(kAggregate, epoch, total));
+  if (lane == 0) {
+    atomicExch(status + t, pack_word(kEpochAggregate, epoch, total));
+  }
   unsigned exclusive = 0;
   for (long long top = t - 1;; top -= 32) {
     // lane l reads tile top - l; a lane before tile 0 reads as an
     // inclusive 0 (tile 0 always publishes an inclusive prefix, so the
     // window that reaches it stops there anyway)
     const long long k = top - lane;
-    unsigned flag = kInclusive;
+    bool incl = true;
     unsigned sum = 0;
     if (k >= 0) {
-      unsigned long long w;
-      do {
-        w = load_word(status + k);
-      } while ((unsigned)(w >> 32) != (kAggregate | epoch) &&
-               (unsigned)(w >> 32) != (kInclusive | epoch));
-      flag = (unsigned)(w >> 32) & ~kEpochMask;
+      const unsigned long long w = gst::wait_word(status + k, epoch);
+      incl = gst::word_inclusive(w);
       sum = (unsigned)w;
     }
-    const unsigned inclusive = __ballot_sync(0xffffffffu, flag == kInclusive);
+    const unsigned inclusive = __ballot_sync(0xffffffffu, incl);
     // the nearest inclusive prefix ends the walk: sum the lanes up to it
     const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
     unsigned part = lane <= stop ? sum : 0u;
@@ -99,7 +89,8 @@ __device__ unsigned lookback(unsigned long long* status, long long t,
     if (inclusive) break;
   }
   if (lane == 0) {
-    atomicExch(status + t, pack(kInclusive, epoch, exclusive + total));
+    atomicExch(status + t,
+               pack_word(kEpochInclusive, epoch, exclusive + total));
   }
   return exclusive;
 }

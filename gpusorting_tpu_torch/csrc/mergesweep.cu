@@ -1,26 +1,20 @@
-// Mergesweep's two merge kernels for Hopper (sm_90a): the strides of one
-// Batcher merge pass below a tile, and a run of its strides of at least a
-// tile in one read and one write of each plane.
+// Mergesweep's hyper-stage kernel for Hopper (sm_90a): a run of the
+// strides of at least a tile of one Batcher merge pass in one read and one
+// write of each plane.
 //
-// Replaces gpusorting_tpu/ops/mergesweep.py:_merge_tail_kernel and
-// _hyper_stage_kernel, the Pallas TPU kernels of `_run_merge_pass`.
+// Replaces gpusorting_tpu/ops/mergesweep.py:_hyper_stage_kernel, a Pallas
+// TPU kernel of `_run_merge_pass`.  (Its other kernel, _merge_tail_kernel,
+// the strides below the tile, is the network's in-tile kernel of
+// bitonic.cu run on the tail's schedule: ops/mergesweep.py:merge_tail.)
 // Contract, on 1-4 int32 planes of n elements (n a power of two) whose
 // first num_keys planes form a lexicographic key (signed int32 order; the
 // others ride along): a merge pass k (a power of two) runs the stages
 // j = k/2, k/4, ..., 1 of the bitonic network's level k; a stage compares
 // every pair (i, i ^ j) with i & j == 0, ascending where i & k == 0, with
 // the tie rule of `gst::exchange` (network_common.cuh, shared with
-// bitonic.cu).  Both kernels run in place: a block reads everything it
+// bitonic.cu).  The kernel runs in place: a block reads everything it
 // writes before it writes.
 //
-//   merge_tail   — every stride j < min(k, tile_elems) of pass k, on each
-//                  tile of tile_elems elements (a power of two).  One block
-//                  per tile: its planes sit in dynamic shared memory, one
-//                  __syncthreads() per stage.  k and the tile arrive as
-//                  scalars (the TPU kernel's ctrl); no schedule table.  The
-//                  direction is bit k of the element's global index: when
-//                  k < tile_elems it changes inside the tile, so it is taken
-//                  per pair, never once per block.
 //   hyper_stage  — the consecutive strides j_hi, j_hi/2, ..., j_lo of pass
 //                  k, every one at least a tile.  The elements that meet in
 //                  those stages form groups of W = 2 j_hi / j_lo members,
@@ -36,9 +30,9 @@
 //                  memory; the caller cuts a pass's high strides into trips
 //                  of as many stages as shared memory holds.
 //
-// Bound: memory, for both.  Each plane is read once and written once per
-// launch, 8 bytes per element per plane: at n = 2^28, 0.641 ms per plane at
-// the H100 SXM's 3.35 TB/s.
+// Bound: memory.  Each plane is read once and written once per launch, 8
+// bytes per element per plane: at n = 2^28, 0.641 ms per plane at the H100
+// SXM's 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
@@ -52,42 +46,6 @@ using gst::pow2;
 
 constexpr int kMaxOps = gst::kMaxNetworkOps;
 constexpr int kThreads = 1024;
-
-template <int NOPS>
-__global__ void __launch_bounds__(kThreads)
-merge_tail(Ops ops, long long k, int tile_elems, int num_keys) {
-  extern __shared__ int4 smem4[];
-  int* smem = reinterpret_cast<int*>(smem4);
-  const long long base = (long long)blockIdx.x * tile_elems;
-  const int vecs = tile_elems / 4;
-#pragma unroll
-  for (int q = 0; q < NOPS; ++q) {
-    const int4* src = reinterpret_cast<const int4*>(ops.in[q] + base);
-    for (int v = threadIdx.x; v < vecs; v += blockDim.x) {
-      smem4[q * vecs + v] = src[v];
-    }
-  }
-  __syncthreads();
-
-  const int half = tile_elems >> 1;
-  const int top = k < tile_elems ? (int)k : tile_elems;
-  for (int j = top >> 1; j >= 1; j >>= 1) {
-    for (int p = threadIdx.x; p < half; p += blockDim.x) {
-      const int lo = (int)pair_low(p, j);
-      gst::exchange_smem<NOPS>(smem, tile_elems, lo, lo | j,
-                               ((base + lo) & k) == 0, num_keys);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int q = 0; q < NOPS; ++q) {
-    int4* dst = reinterpret_cast<int4*>(ops.out[q] + base);
-    for (int v = threadIdx.x; v < vecs; v += blockDim.x) {
-      dst[v] = smem4[q * vecs + v];
-    }
-  }
-}
 
 // log_span = log2(2 j_hi), log_w = log2(W), log_cols = log2(cols)
 template <int NOPS>
@@ -147,20 +105,6 @@ int log2_of(long long x) {
 }
 
 template <int NOPS>
-int launch_tail(const Ops& ops, long long k, int num_keys, int num_tiles,
-                int tile_elems, cudaStream_t s) {
-  const size_t smem = (size_t)NOPS * tile_elems * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      merge_tail<NOPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = tile_elems / 2 < kThreads ? tile_elems / 2 : kThreads;
-  merge_tail<NOPS><<<num_tiles, threads, smem, s>>>(ops, k, tile_elems,
-                                                    num_keys);
-  return (int)cudaGetLastError();
-}
-
-template <int NOPS>
 int launch_hyper(const Ops& ops, long long n, long long k, long long j_hi,
                  long long j_lo, int cols, int num_keys, cudaStream_t s) {
   const long long w = 2 * j_hi / j_lo;
@@ -185,31 +129,6 @@ Ops in_place(void* p0, void* p1, void* p2, void* p3) {
 }
 
 }  // namespace
-
-// The strides below min(k, tile_elems) of merge pass k on each of
-// num_tiles tiles, in place.  Launches on `stream`; returns the first CUDA
-// error (0 on success).  Planes past num_ops are ignored.
-extern "C" int gst_merge_tail(void* p0, void* p1, void* p2, void* p3,
-                              int num_ops, int num_keys, int num_tiles,
-                              int tile_elems, long long k, void* stream) {
-  if (num_ops < 1 || num_ops > kMaxOps || num_keys < 1 ||
-      num_keys > num_ops || num_tiles <= 0 || tile_elems < 128 ||
-      !pow2(tile_elems) || !pow2(k) || k < 2) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Ops ops = in_place(p0, p1, p2, p3);
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (num_ops) {
-    case 1:
-      return launch_tail<1>(ops, k, num_keys, num_tiles, tile_elems, s);
-    case 2:
-      return launch_tail<2>(ops, k, num_keys, num_tiles, tile_elems, s);
-    case 3:
-      return launch_tail<3>(ops, k, num_keys, num_tiles, tile_elems, s);
-    default:
-      return launch_tail<4>(ops, k, num_keys, num_tiles, tile_elems, s);
-  }
-}
 
 // The strides j_hi .. j_lo of merge pass k over n elements of each plane,
 // in place, a block gathering cols consecutive bases of W = 2 j_hi / j_lo

@@ -1,8 +1,9 @@
 // Device helpers shared by the compare-exchange networks: the bitonic
-// network's kernels (bitonic.cu) and mergesweep's merge kernels
+// network's kernels (bitonic.cu, whose in-tile kernel also runs
+// mergesweep's merge tail) and mergesweep's hyper-stage kernel
 // (mergesweep.cu).  The register and warp-shuffle stages below serve the
-// in-tile kernel of bitonic.cu; the merge kernels run every stage
-// through shared memory (`exchange_smem`).
+// in-tile kernel of bitonic.cu; the hyper stage runs its stages through
+// shared memory (`exchange_smem`).
 //
 // A compare-exchange orders the pair (lo, hi) of NOPS int32 values, the
 // first num_keys forming a lexicographic key (signed order; the others ride

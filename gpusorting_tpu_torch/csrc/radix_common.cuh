@@ -1,6 +1,6 @@
 // Device helpers shared by the radix kernels (tile_hist4.cu,
-// exclusive_scan.cu, downsweep.cu, binning.cu, global_hist.cu) and the
-// stitch kernels (stitch.cu).
+// exclusive_scan.cu, downsweep.cu, downsweep_rows.cu, binning.cu,
+// global_hist.cu) and the stitch kernels (stitch.cu).
 
 #pragma once
 
@@ -50,6 +50,51 @@ __device__ __forceinline__ unsigned chained_exclusive(unsigned* status,
   return exclusive;
 }
 
+// ---- status words with a per-call epoch (exclusive_scan.cu, binning.cu) --
+//
+// A 64-bit status word holds the flag (aggregate or inclusive) and a 30-bit
+// epoch in its high half and a full 32-bit sum in its low half.  A word
+// counts only if its epoch is the call's, so the words an earlier call left
+// read as "nothing published" with no clearing: the wrapper owns one zeroed
+// scratch buffer per device and stream (`kernels._scan_scratch`) and hands
+// each call the next epoch.
+constexpr unsigned kEpochMask = (1u << 30) - 1u;
+constexpr unsigned kEpochAggregate = 1u << 30;
+constexpr unsigned kEpochInclusive = 2u << 30;
+
+__device__ __forceinline__ unsigned long long pack_word(unsigned flag,
+                                                        unsigned epoch,
+                                                        unsigned sum) {
+  return ((unsigned long long)(flag | epoch) << 32) | sum;
+}
+
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// Whether the word w carries `epoch` (it was published by this call).
+__device__ __forceinline__ bool word_ready(unsigned long long w,
+                                          unsigned epoch) {
+  const unsigned high = (unsigned)(w >> 32);
+  return high == (kEpochAggregate | epoch) ||
+         high == (kEpochInclusive | epoch);
+}
+
+// Spins until the word at p carries `epoch`; returns it.
+__device__ __forceinline__ unsigned long long wait_word(
+    const unsigned long long* p, unsigned epoch) {
+  unsigned long long w;
+  do {
+    w = load_word(p);
+  } while (!word_ready(w, epoch));
+  return w;
+}
+
+__device__ __forceinline__ bool word_inclusive(unsigned long long w) {
+  return ((unsigned)(w >> 32) & ~kEpochMask) == kEpochInclusive;
+}
+
 // The 4-bit digit at `shift` of a biased int32 key code x = u ^ 0x80000000:
 // the xor restores the u32 code u, so the top nibble (shift 28) is right.
 __device__ __forceinline__ unsigned digit_of(int x, int shift) {
@@ -93,7 +138,7 @@ __device__ unsigned block_exclusive(unsigned s, unsigned* total) {
   return r;
 }
 
-// ---- the stable scatter of one tile, shared by downsweep.cu and binning.cu
+// ---- the stable scatter of one tile (downsweep.cu, downsweep_rows.cu) -----
 
 constexpr int kScatterThreads = 256;   // the block size of its callers
 constexpr int kScatterItems = 8;       // consecutive keys per thread
@@ -117,9 +162,7 @@ __device__ __forceinline__ int padded_counter(int e) { return e + (e >> 5); }
 // shared memory) ends advanced past the tile.  The caller fills cursor[]
 // before the call; it is first read after a barrier inside.  tile_elems is
 // a multiple of kScatterItems.  Every thread of the block must call it.
-// The digit is the code's 4 bits at `shift`; with DIGITS it is read from
-// the int32 plane `digits` instead (values in [0, 16), laid out like the
-// planes), and `shift` is unused.
+// The digit is the code's 4 bits at `shift`.
 //
 // The tile is walked in chunks of kScatterChunk elements.  Thread j loads
 // the kScatterItems consecutive elements from j * kScatterItems with
@@ -129,10 +172,9 @@ __device__ __forceinline__ int padded_counter(int e) { return e + (e >> 5); }
 // plane is then shuffled through shared memory into that order and written
 // by consecutive threads to consecutive addresses within each digit's run,
 // so the scattered writes still coalesce.
-template <int NOPS, bool DIGITS = false>
+template <int NOPS>
 __device__ void scatter_tile(const Planes& planes, long long base,
-                             long long tile_elems, int shift, int* cursor,
-                             const int* digits = nullptr) {
+                             long long tile_elems, int shift, int* cursor) {
   constexpr int kThreads = kScatterThreads;
   constexpr int kItems = kScatterItems;
   constexpr int kChunk = kScatterChunk;
@@ -171,16 +213,9 @@ __device__ void scatter_tile(const Planes& planes, long long base,
         v[q][0] = a.x; v[q][1] = a.y; v[q][2] = a.z; v[q][3] = a.w;
         v[q][4] = b.x; v[q][5] = b.y; v[q][6] = b.z; v[q][7] = b.w;
       }
-      if (DIGITS) {
-        const int4* src = reinterpret_cast<const int4*>(digits + base + i0);
-        const int4 a = __ldg(src);
-        const int4 b = __ldg(src + 1);
-        d[0] = a.x; d[1] = a.y; d[2] = a.z; d[3] = a.w;
-        d[4] = b.x; d[5] = b.y; d[6] = b.z; d[7] = b.w;
-      }
 #pragma unroll
       for (int it = 0; it < kItems; ++it) {
-        if (!DIGITS) d[it] = digit_of(v[0][it], shift);
+        d[it] = digit_of(v[0][it], shift);
         const int e = padded_counter(d[it] * kThreads + tid);
         r[it] = counters[e];
         counters[e] = r[it] + 1;

@@ -74,9 +74,11 @@ def in_tile_schedule(tile_elems: int) -> torch.Tensor:
 
 
 def tail_schedule(tile_elems: int, k: int) -> torch.Tensor:
-    """(S, 2) int32 stages of level k's strides below the tile."""
+    """(S, 2) int32 stages of level k's strides below the tile: (j, k) for
+    j = min(k, tile_elems)/2, ..., 1 (the network's tails have k above the
+    tile; mergesweep's merge tail also runs k below it)."""
     return torch.from_numpy(np.array(
-        [(j, k) for j in _powers_desc(tile_elems // 2)],
+        [(j, k) for j in _powers_desc(min(k, tile_elems) // 2)],
         np.int32).reshape(-1, 2))
 
 

@@ -193,24 +193,26 @@ def _scan_library() -> ctypes.CDLL:
     return lib
 
 
-# The chained scan's scratch, one per (device, stream): [buffer, epoch].
-# The buffer is an 8-byte ticket and one 64-bit status word per tile,
-# zeroed when allocated; each call on the stream takes the next epoch, so
-# the words an earlier call left never read as this call's, and the buffer
-# is zeroed again only when the 30-bit epoch wraps.  Calls on one stream
-# run in order, so they share it; calls on two streams never do.
+# The chained scans' scratch, one per (device, stream): [buffer, epoch].
+# Both chained scans use it: `exclusive_scan` (one status word a tile) and
+# `radix16.binning_pass` (16 a partition).  The buffer is an 8-byte ticket
+# and the 64-bit status words, zeroed when allocated; each call on the
+# stream, of either kernel, takes the next epoch, so the words an earlier
+# call left never read as this call's, and the buffer is zeroed again only
+# when the 30-bit epoch wraps.  Calls on one stream run in order, so they
+# share it; calls on two streams never do.
 _SCAN_SCRATCH: dict = {}
 _SCAN_EPOCHS = (1 << 30) - 1
 
 
-def _scan_scratch(dev: torch.device, stream: int, tiles: int) -> tuple:
-    """(buffer, epoch) for one scan of `tiles` tiles on `stream` (the
-    current stream's handle)."""
+def _scan_scratch(dev: torch.device, stream: int, words: int) -> tuple:
+    """(buffer, epoch) for one call that needs `words` status words on
+    `stream` (the current stream's handle)."""
     key = (dev.index, stream)
     entry = _SCAN_SCRATCH.get(key)
-    if entry is None or entry[0].numel() < 1 + tiles:
+    if entry is None or entry[0].numel() < 1 + words:
         # allocated on `stream` (the current one), which alone uses it
-        entry = [torch.zeros(1 + max(tiles, 1024), dtype=torch.int64,
+        entry = [torch.zeros(1 + max(words, 1024), dtype=torch.int64,
                              device=dev), 0]
         _SCAN_SCRATCH[key] = entry
     entry[1] += 1

@@ -14,8 +14,10 @@ with INT32_MAX), in segments of L = `seg_elems`:
          on, `hyper_stage` trips (kernel `csrc/mergesweep.cu`, replacing
          `_hyper_stage_kernel`), each taking as many consecutive strides in
          one read and one write as shared memory holds;
-       - its strides below the tile: one `merge_tail` (same source,
-         replacing `_merge_tail_kernel`).
+       - its strides below the tile: one `merge_tail` (replacing
+         `_merge_tail_kernel`), a launch of the network's in-tile kernel
+         (`csrc/bitonic.cu`, `local_stages`' register runs) on the
+         schedule (j, k) for j = min(k, tile)/2, ..., 1, in place.
 
 The tile is the network's shared-memory tile for the tensor's device and
 operand count (`bitonic.network_tile_rows`); JAX sizes its own by VMEM
@@ -75,9 +77,6 @@ def _check_hyper(planes, num_keys, k, j_hi, j_lo):
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
-    lib.gst_merge_tail.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_longlong, ctypes.c_void_p]
-    lib.gst_merge_tail.restype = ctypes.c_int
     lib.gst_hyper_stage.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int,
                                                        ctypes.c_void_p]
@@ -116,21 +115,35 @@ def merge_tail_plain(planes, k: int, tile_rows: int, num_keys: int) -> list:
     return planes
 
 
+@functools.lru_cache(maxsize=256)
+def _tail_table(dev: torch.device, k: int, tile_elems: int) -> tuple:
+    """The tail's schedule and run table on `dev`, as
+    `bitonic._device_schedule` builds them, once per device, pass and
+    tile."""
+    sched = bitonic.tail_schedule(tile_elems, k)
+    return bitonic._device_schedule(dev, tile_elems, sched.numpy().tobytes())
+
+
 def merge_tail(planes, k: int, tile_rows: int, num_keys: int) -> list:
     """The strides j = min(k, tile)/2, ..., 1 of merge pass k on every tile
     of `tile_rows` rows of 1-4 (rows, 128) int32 planes, IN PLACE (the
     engine runs it on buffers it owns).  Returns the planes.
 
-    CUDA planes launch `csrc/mergesweep.cu` once (or raise); CPU planes
-    take `merge_tail_plain`."""
+    CUDA planes launch the network's in-tile kernel (`csrc/bitonic.cu`)
+    once on `bitonic.tail_schedule(tile, k)`, in place (or raise), counted
+    here and not in `bitonic.local_stages.launches`; CPU planes take
+    `merge_tail_plain`."""
     _check("merge_tail", planes, num_keys, k, tile_rows)
     if planes[0].device.type == "cpu":
         return merge_tail_plain(planes, k, tile_rows, num_keys)
     dev = _check_cuda("merge_tail", planes)
     tile_elems = tile_rows * LANES
-    _nvcc.launch("merge_tail", _library().gst_merge_tail, *_spare(planes),
-                 len(planes), num_keys, planes[0].shape[0] // tile_rows,
-                 tile_elems, k, device=dev)
+    table, num_stages, num_runs = _tail_table(dev, k, tile_elems)
+    ptrs = _spare(planes)
+    _nvcc.launch("merge_tail", bitonic._library().gst_local_stages,
+                 *ptrs, *ptrs, table.data_ptr() + 16 * num_runs, num_stages,
+                 table.data_ptr(), num_runs, len(planes), num_keys,
+                 planes[0].shape[0] // tile_rows, tile_elems, device=dev)
     merge_tail.launches += 1
     return planes
 

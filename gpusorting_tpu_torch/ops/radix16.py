@@ -15,16 +15,18 @@ carriers of `core.codec`; rides are int32 bit carriers.
                TPU carried 16 cursors and each digit's partial 128-lane row
                across a grid that ran in order, and flushed the partial
                rows at the end; here a chained scan with decoupled lookback
-               across the tiles takes the cursors' place, and elements are
-               written at their own addresses, so no row is carried.
+               across the kernel's own partitions (not the tile) takes the
+               cursors' place, and elements are written at their own
+               addresses, so no row is carried.  Its status words live in
+               `kernels._scan_scratch`, with a per-call epoch.
   pass skip  — a pass whose digit is the same for every element (its count
                is the padded total) is the identity and is skipped, as in
                JAX; that reads the (8, 16) counts to the host, the sort's
                one synchronisation.
   segments   — `segments=` cuts every pass into tile ranges, one launch
-               each, all writing into the same output buffers and each
-               starting from the previous range's cursors: the
-               EmulatedDeadlocking analog, bit-exact with the fused run.
+               (and one epoch) each, all writing into the same output
+               buffers and each starting from the previous range's cursors:
+               the EmulatedDeadlocking analog, bit-exact with the fused run.
                Segmented runs run every pass, as JAX's do.
 
   digit plane — `binning_pass(..., digits=)` takes each element's digit
@@ -126,10 +128,12 @@ def binning_pass_plain(planes, cursors: torch.Tensor, shift: int,
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
     fn = lib.gst_binning
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.gst_binning_partition.argtypes = []
+    lib.gst_binning_partition.restype = ctypes.c_int
     return lib
 
 
@@ -145,8 +149,10 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
     cursors_out; it may have more rows than the input.  `digits`, an int32
     plane shaped like the inputs with values in [0, 16), gives each
     element's digit in place of its code's (`shift` is then unused; a
-    value out of range raises ValueError, on either device).  CUDA planes launch `csrc/binning.cu`
-    once (or raise); CPU planes take `binning_pass_plain`."""
+    value out of range raises ValueError, on either device).  `tile_rows`
+    only checks that the range is whole tiles: the kernel cuts it into its
+    own partitions.  CUDA planes launch `csrc/binning.cu` once (or raise);
+    CPU planes take `binning_pass_plain`."""
     _check_pass(planes, cursors, shift, tile_rows, out, digits)
     if planes[0].device.type == "cpu":
         for p in list(planes) + list(out or []):
@@ -178,18 +184,22 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
     if out_rows * LANES >= 1 << 31:
         raise ValueError(f"binning_pass: {out_rows * LANES} output elements "
                          "exceed int32")
-    num_tiles = rows // tile_rows
+    n = rows * LANES
+    lib = _library()
+    parts = -(-n // lib.gst_binning_partition())
     cursors_out = torch.empty_like(cursors)
-    scratch = torch.empty(num_tiles * NBUCKETS + 1, dtype=torch.int32,
-                          device=dev)
+    # 16 status words a partition in the chained scans' scratch of this
+    # device and stream, with the call's epoch: no clearing launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, epoch = kernels._scan_scratch(dev, stream, parts * NBUCKETS)
     spare = [0] * (MAX_PLANES - len(planes))
-    _nvcc.launch("binning_pass", _library().gst_binning,
+    _nvcc.launch("binning_pass", lib.gst_binning,
                  *[p.data_ptr() for p in planes], *spare,
                  *[o.data_ptr() for o in out], *spare,
                  None if digits is None else digits.data_ptr(),
-                 cursors.data_ptr(),
-                 cursors_out.data_ptr(), scratch.data_ptr(), len(planes),
-                 num_tiles, tile_rows * LANES, shift, device=dev)
+                 cursors.data_ptr(), cursors_out.data_ptr(),
+                 scratch.data_ptr(), scratch.numel() - 1, epoch,
+                 len(planes), n, shift, device=dev, stream=stream)
     binning_pass.launches += 1
     return out, cursors_out
 

@@ -408,6 +408,80 @@ def test_binning_kernel_matches_plain(cuda, kind, n):
                 assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("tile_rows,tiles", [(1, 4099), (3, 1367), (32, 9),
+                                             (512, 3)])
+@pytest.mark.parametrize("kind", ["rand", "alleq", "twodigit"])
+def test_binning_kernel_partitions_match_plain(cuda, kind, tile_rows, tiles):
+    """The kernel cuts a range into its own partitions, whatever the tile:
+    ranges that end in a ragged partition, all-equal and two-digit keys
+    (ties on every item of a warp), fused and as the adversarial_segments
+    chain, whose launches start mid-array from cursors that are not
+    bases."""
+    rows = tile_rows * tiles
+    n = rows * 128
+    if kind == "twodigit":      # u32 0 and 0xFFFFFFFF: digits 0 and 15
+        bits = np.random.default_rng(tiles).integers(0, 2, n, np.uint32)
+        codes = codec.bias(torch.from_numpy(bits * np.uint32(0xFFFFFFFF))
+                           ).to(cuda)
+    else:
+        codes = _radix_codes(kind, n, tiles, cuda)
+    ride = torch.arange(n, dtype=torch.int32, device=cuda)
+    planes = [codes.view(rows, 128), ride.view(rows, 128),
+              (ride * 7).view(rows, 128)]
+    bases, _ = radix16._bases_all_passes(codes)
+    segs = radix16.adversarial_segments(n, tile_rows)
+    bounds = sorted({0, tiles} | set(segs))
+    for p in (0, 7):
+        for ops in (planes[:1], planes[:2], planes):
+            want, wcur = radix16.binning_pass_plain(ops, bases[p], 4 * p,
+                                                    tile_rows)
+            got, cur = radix16.binning_pass(ops, bases[p], 4 * p, tile_rows)
+            before = radix16.binning_pass.launches
+            out, c = [torch.empty_like(x) for x in ops], bases[p]
+            for a, b in zip(bounds[:-1], bounds[1:]):
+                _, c = radix16.binning_pass(
+                    [x[a * tile_rows:b * tile_rows] for x in ops], c, 4 * p,
+                    tile_rows, out)
+            torch.cuda.synchronize()
+            assert radix16.binning_pass.launches == before + len(bounds) - 1
+            assert torch.equal(cur, wcur) and torch.equal(c, wcur)
+            for g, o, w in zip(got, out, want):
+                assert torch.equal(g, w) and torch.equal(o, w)
+
+
+def test_binning_status_words_across_calls_and_streams(cuda):
+    """Passes back to back on one stream with no synchronisation, each on
+    the status words the one before left (and those of exclusive_scan,
+    which shares the scratch), passes on a second stream, and the epoch's
+    wrap, which zeroes the scratch."""
+    n = (1 << 20) + 3 * 128        # 8195 rows, tiles of 5
+    codes = _radix_codes("rand", n, 3, cuda)
+    x = codes.view(-1, 128)
+    bases, _ = radix16._bases_all_passes(codes)
+    want = [radix16.binning_pass_plain([x], bases[p], 4 * p, 5)
+            for p in range(8)]
+    got = []
+    for p in range(8):
+        got.append(radix16.binning_pass([x], bases[p], 4 * p, 5))
+        kernels.exclusive_scan(codes)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = [radix16.binning_pass([x], bases[p], 4 * p, 5)
+                   for p in range(8)]
+    torch.cuda.synchronize()
+    for (go, gc), (so, sc), (wo, wc) in zip(got, on_side, want):
+        assert torch.equal(gc, wc) and torch.equal(sc, wc)
+        assert torch.equal(go[0], wo[0]) and torch.equal(so[0], wo[0])
+    key = (x.device.index, torch.cuda.current_stream().cuda_stream)
+    kernels._SCAN_SCRATCH[key][1] = kernels._SCAN_EPOCHS
+    for p in (0, 7):
+        go, gc = radix16.binning_pass([x], bases[p], 4 * p, 5)
+        assert torch.equal(go[0], want[p][0][0]) and torch.equal(
+            gc, want[p][1])
+    assert kernels._SCAN_SCRATCH[key][1] == 2
+
+
 @pytest.mark.parametrize("tile_rows,tiles", [(1, 1), (8, 1100), (None, 4)])
 @pytest.mark.parametrize("num_ops,num_keys",
                          [(1, 1), (4, 2), (2, 1), (2, 2), (3, 2)])
@@ -691,6 +765,32 @@ def test_merge_kernels_match_plain(cuda, num_ops, num_keys):
     assert (mergesweep.merge_tail.launches - before[0],
             mergesweep.hyper_stage.launches - before[1]) == (
         3, 1 + 2 * len(trips))
+
+
+@pytest.mark.parametrize("k_of_tile", [0.25, 2, 1024],
+                         ids=["below", "twice", "far_above"])
+@pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (2, 1), (3, 2), (4, 2)])
+def test_merge_tail_is_local_stages_on_card(cuda, num_ops, num_keys,
+                                            k_of_tile):
+    """merge_tail runs the network's in-tile kernel in place on the tail's
+    schedule: equal to merge_tail_plain and to local_stages on
+    bitonic.tail_schedule, counted in merge_tail.launches alone."""
+    tr = bitonic.network_tile_rows(cuda, num_ops)
+    te = tr * 128
+    k = int(te * k_of_tile)
+    n = max(1 << 20, k)
+    planes = _net_planes(num_ops, n, num_ops + k, cuda)
+    before = (mergesweep.merge_tail.launches, bitonic.local_stages.launches)
+    got = mergesweep.merge_tail([p.clone() for p in planes], k, tr, num_keys)
+    assert (mergesweep.merge_tail.launches - before[0],
+            bitonic.local_stages.launches - before[1]) == (1, 0)
+    want = mergesweep.merge_tail_plain([p.clone() for p in planes], k, tr,
+                                       num_keys)
+    net = bitonic.local_stages(planes, bitonic.tail_schedule(te, k),
+                               num_keys, tr)
+    torch.cuda.synchronize()
+    for g, w, x in zip(got, want, net):
+        assert torch.equal(g, w) and torch.equal(g, x)
 
 
 @pytest.mark.parametrize("skew", [False, True])

@@ -110,6 +110,29 @@ def test_merge_tail_matches_jax(num_ops, num_keys, k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("k_of_tile", [0.25, 1, 2, 64],
+                         ids=["below", "at", "twice", "far_above"])
+@pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (2, 1), (3, 2), (4, 2)])
+def test_merge_tail_is_local_stages_on_its_schedule(num_ops, num_keys,
+                                                    k_of_tile):
+    """merge_tail_plain equals local_stages_plain on tail_schedule(tile, k):
+    the identity that lets the card run the merge tail on the network's
+    in-tile kernel.  k below the tile (the direction changes inside a
+    tile), at it, at twice and far above it."""
+    R, tr = 512, 8                 # n = 2^16, 64 tiles of 2^10
+    te = tr * 128
+    k = int(te * k_of_tile)
+    planes = [torch.from_numpy(p) for p in _planes(num_ops, R, seed=k)]
+    sched = bitonic.tail_schedule(te, k)
+    j = min(k, te) // 2
+    assert sched.tolist() == [[j >> s, k] for s in range(j.bit_length())]
+    want = bitonic.local_stages_plain(planes, sched, num_keys, tr)
+    got = mergesweep.merge_tail_plain([p.clone() for p in planes], k, tr,
+                                      num_keys)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("stride_rows,W,k", [(8, 8, 8192), (16, 4, 16384)])
 @pytest.mark.parametrize("num_ops,num_keys", [(1, 1), (3, 2)])
 def test_hyper_stage_matches_jax(num_ops, num_keys, stride_rows, W, k):
