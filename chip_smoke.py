@@ -73,7 +73,11 @@ outside a checkout of the repository.  Phases, each fatal on failure:
  10. compact and expand (csrc/stitch.cu) against their plain versions at
      n = 2^28 on 1, 2 and 3 planes, bit for bit, under masks with none, all,
      half and 1/64 set and an interval mask of random segments; expand
-     also from a stream shorter than the mask;
+     also from a stream shorter than the mask; then odd-offset views: a
+     half-set mask at byte offsets 1, 7 and 13 of a longer buffer, 1-4
+     planes each at its own element offset 1-3 (plane 0 of 4 values, so
+     ties show the ranks' order), expand from streams at other offsets,
+     as long as the mask and shorter than the set count;
  11. the segmented sort through the public entry points, each output held
      bit for bit against flat_sort.segmented_sort_pairs (the composite
      oracle), pairs also against the payload == key oracle: (a) the
@@ -1216,6 +1220,37 @@ def main() -> int:
                  expand_stream_lengths=[N, count // 2], bit_exact=True)
             free()
     del masks
+    free()
+    mbuf = torch.rand(N + 16, generator=gen, device=dev) < 0.5
+    obufs = [prng.hybrid_taus_bits(N + 4, SEED + 25 + j, device=dev)
+             .view(torch.int32) for j in range(4)]
+    obufs[0] &= 3
+    for mo in (1, 7, 13):
+        mask = mbuf[mo:mo + N]
+        count = int(mask.sum())
+        for k in (1, 2, 3, 4):
+            offs = [(mo + q) % 3 + 1 for q in range(k)]
+            ops = [b[o:o + N] for b, o in zip(obufs, offs)]
+            what = f"mask offset {mo}, planes at {offs}"
+            packed, cnt = stitch.compact_ops(ops, mask)
+            wpacked, wcnt = stitch.compact_plain(ops, mask)
+            _require(int(cnt) == int(wcnt) == count,
+                     f"compact count {int(cnt)} != {count} on {what}")
+            check_stitch("compact", [p[:count] for p in packed],
+                         [w[:count] for w in wpacked], what)
+            del packed, wpacked
+            for length in (N, count // 2):
+                srcs = [b[4 - o:4 - o + length] for b, o in zip(obufs, offs)]
+                check_stitch("expand", stitch.expand_ops(srcs, mask),
+                             stitch.expand_plain(srcs, mask),
+                             f"{what}, stream {length}")
+            torch.cuda.synchronize()
+            emit(phase="kernel_vs_plain", kernel="compact+expand",
+                 mask="half", mask_byte_offset=mo, plane_offsets=offs,
+                 planes=k, n=N, count=count,
+                 expand_stream_lengths=[N, count // 2], bit_exact=True)
+            free()
+    del mbuf, obufs, mask, ops, srcs
     free()
 
     # ---- phase 11: the segmented sort through the public entry points ----

@@ -100,19 +100,6 @@ static_assert(kThreads % 32 == 0 && kWarps >= 1 && kWarps <= 32,
               "block size");
 static_assert(kPart % 4 == 0 && kPart <= 65536, "16-bit slot sources");
 
-// Copies 16 bytes from global to shared memory without registers
-// (cp.async; completed by cp_async_wait and a barrier).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
 // Dynamic shared memory of one block: the staged carrier, the riders in
 // input order, and each staged slot's source element (16 bits).
 template <int RIDERS>
@@ -212,7 +199,7 @@ binning(Planes planes, const int* __restrict__ digits,
   for (int q = 0; q < kRiders; ++q) {
     const int* src = planes.in[kFirstRider + q] + base;
     for (int c = tid * 4; c < count_here; c += kThreads * 4) {
-      cp_async16(rid + q * kPart + c, src + c);
+      gst::cp_async16(rid + q * kPart + c, src + c);
     }
   }
 
@@ -304,7 +291,7 @@ binning(Planes planes, const int* __restrict__ digits,
       if (part == num_parts - 1) cursors_out[lane] = cur + (int)total;
     }
   }
-  if (kRiders) cp_async_wait();
+  if (kRiders) gst::cp_async_wait();
   __syncthreads();
 
   // 7. the partition out in digit order: consecutive threads on

@@ -4,6 +4,12 @@
 // behind `exclusive_scan`.  Contract: out[i] = x[0] + ... + x[i-1], out[0] =
 // 0, for any length, wrapping like int32 (the sums are taken in uint32).
 //
+// Bound: memory.  The vector is read once and written once, 8 bytes per
+// element; on the sort's path it is 16 * T elements (T = tiles), 8 MB at
+// n = 2^28 with 4096-key tiles, 2.5 us at 3.35 TB/s, about one launch's
+// latency.  So the design spends nothing beyond one launch: no second pass
+// over the data, no spine block, no memset.
+//
 // The TPU kernel carries a running sum from one grid step to the next,
 // which holds only because a TPU grid runs in order.  A CUDA grid does not,
 // so this is a single-pass chained scan with decoupled lookback, one
@@ -13,28 +19,22 @@
 //      many blocks the grid has);
 //   2. loads its tile of kTile elements once into registers (16-byte loads
 //      for a whole tile) and reduces it with a block scan;
-//   3. publishes the tile's sum as an aggregate, then one warp looks back
-//      over its predecessors' status words 32 at a time, summing
-//      aggregates, until it meets an inclusive prefix; it publishes its
-//      own inclusive prefix;
+//   3. has one warp publish the tile's sum as an aggregate and look back
+//      over its predecessors' status words 32 at a time, one round trip a
+//      step, until it meets an inclusive prefix, then publish its own
+//      inclusive prefix (`gst::warp_lookback`, radix_common.cuh, which
+//      stitch.cu shares);
 //   4. writes its tile's exclusive scan from the registers.
 //
-// A status word is 64 bits: the flag (aggregate or inclusive) and a 30-bit
-// epoch in the high half, the full 32-bit sum in the low half (the values
-// span the whole int32 range, so gst::chained_exclusive's 30-bit count
-// does not do here; `gst::pack_word`, radix_common.cuh, shared with
-// binning.cu).  A word counts only if its epoch is the call's, so
-// words left by an earlier call read as "nothing published" with no
-// clearing: the wrapper owns one zeroed scratch buffer per device and
-// stream and hands each call the next epoch.  The ticket is the first
-// word of the scratch; the block that draws the last ticket sets it back
-// to 0 for the stream's next call.
-//
-// Bound: memory.  The vector is read once and written once, 8 bytes per
-// element; on the sort's path it is 16 * T elements (T = tiles), 8 MB at
-// n = 2^28 with 4096-key tiles, 2.5 us at 3.35 TB/s, about one launch's
-// latency.  So the design spends nothing beyond one launch: no second pass
-// over the data, no spine block, no memset.
+// A status word is 64 bits: the flag and a 30-bit epoch in the high half,
+// the full 32-bit sum in the low half, since the values span the whole
+// int32 range (`gst::pack_word`).  A word counts only if its epoch is the
+// call's, so words left by an earlier call read as "nothing published"
+// with no clearing: the wrapper owns one zeroed scratch buffer per device
+// and stream, shared with the binning pass and the stitch kernels, and
+// hands each call the next epoch.  The ticket is the first word of the
+// scratch; the block that draws the last ticket sets it back to 0 for the
+// stream's next call.
 
 #include <cuda_runtime.h>
 
@@ -42,58 +42,11 @@
 
 namespace {
 
-using gst::kEpochAggregate;
-using gst::kEpochInclusive;
 using gst::kEpochMask;
-using gst::pack_word;
 
 constexpr int kThreads = 256;
 constexpr int kItems = 8;
 constexpr int kTile = kThreads * kItems;
-
-// Run by the 32 lanes of warp 0 for tile t with sum `total`: publishes it,
-// looks back, publishes the inclusive prefix; returns the sum of tiles
-// 0 .. t-1 in every lane.
-__device__ unsigned lookback(unsigned long long* status, long long t,
-                             unsigned total, unsigned epoch) {
-  const int lane = threadIdx.x & 31;
-  if (t == 0) {
-    if (lane == 0) atomicExch(status, pack_word(kEpochInclusive, epoch, total));
-    return 0u;
-  }
-  if (lane == 0) {
-    atomicExch(status + t, pack_word(kEpochAggregate, epoch, total));
-  }
-  unsigned exclusive = 0;
-  for (long long top = t - 1;; top -= 32) {
-    // lane l reads tile top - l; a lane before tile 0 reads as an
-    // inclusive 0 (tile 0 always publishes an inclusive prefix, so the
-    // window that reaches it stops there anyway)
-    const long long k = top - lane;
-    bool incl = true;
-    unsigned sum = 0;
-    if (k >= 0) {
-      const unsigned long long w = gst::wait_word(status + k, epoch);
-      incl = gst::word_inclusive(w);
-      sum = (unsigned)w;
-    }
-    const unsigned inclusive = __ballot_sync(0xffffffffu, incl);
-    // the nearest inclusive prefix ends the walk: sum the lanes up to it
-    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
-    unsigned part = lane <= stop ? sum : 0u;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      part += __shfl_xor_sync(0xffffffffu, part, o);
-    }
-    exclusive += part;
-    if (inclusive) break;
-  }
-  if (lane == 0) {
-    atomicExch(status + t,
-               pack_word(kEpochInclusive, epoch, exclusive + total));
-  }
-  return exclusive;
-}
 
 __global__ void __launch_bounds__(kThreads)
 chained_scan(const int* __restrict__ in, int* __restrict__ out, long long n,
@@ -130,7 +83,7 @@ chained_scan(const int* __restrict__ in, int* __restrict__ out, long long n,
   unsigned total;
   unsigned p = gst::block_exclusive<kThreads>(s, &total);
   if (threadIdx.x < 32) {
-    const unsigned base = lookback(status, t, total, epoch);
+    const unsigned base = gst::warp_lookback(status, t, total, epoch);
     if (threadIdx.x == 0) s_base = base;
   }
   __syncthreads();

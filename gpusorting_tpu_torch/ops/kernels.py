@@ -194,10 +194,11 @@ def _scan_library() -> ctypes.CDLL:
 
 
 # The chained scans' scratch, one per (device, stream): [buffer, epoch].
-# Both chained scans use it: `exclusive_scan` (one status word a tile) and
-# `radix16.binning_pass` (16 a partition).  The buffer is an 8-byte ticket
-# and the 64-bit status words, zeroed when allocated; each call on the
-# stream, of either kernel, takes the next epoch, so the words an earlier
+# Every chained scan uses it: `exclusive_scan` (one status word a tile),
+# `radix16.binning_pass` (16 a partition) and `stitch.compact_ops` and
+# `stitch.expand_ops` (one a tile).  The buffer is an 8-byte ticket and the
+# 64-bit status words, zeroed when allocated; each call on the stream, of
+# any of these kernels, takes the next epoch, so the words an earlier
 # call left never read as this call's, and the buffer is zeroed again only
 # when the 30-bit epoch wraps.  Calls on one stream run in order, so they
 # share it; calls on two streams never do.

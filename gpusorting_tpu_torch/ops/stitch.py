@@ -10,13 +10,16 @@ Port of `gpusorting_tpu/ops/stitch.py`:
 
 Operands are 1-4 1-D int32 planes (uint32 viewed as int32) moved by one
 1-D bool mask.  The TPU kernels carried a write (compact) or read (expand)
-cursor across a grid that ran in order; on the card each tile of 4096
+cursor across a grid that ran in order; on the card each tile of 2048
 elements ranks its mask and takes its base from a chained scan with
-decoupled lookback, one launch a call.  The count is a 0-d int32 tensor on
-the mask's device, so no call waits for the card.  Each wrapper launches
-its kernel on CUDA tensors (or raises) and takes the plain version only
-for CPU tensors; `fn.launches` counts the kernel launches.  n is below
-2^30, the lookback's 30-bit count.
+decoupled lookback, one launch a call, on the 64-bit status words and the
+per-call epoch of `kernels._scan_scratch`, which the scan and the binning
+pass share on each stream (no clearing, no allocation a call).  The count
+is a 0-d int32 tensor on the mask's device, so no call waits for the card.
+Each wrapper launches its kernel on CUDA tensors (or raises) and takes the
+plain version only for CPU tensors; `fn.launches` counts the kernel
+launches.  The mask may start at any byte and each plane at any 4-byte
+offset.  n is below 2^30.
 """
 
 from __future__ import annotations
@@ -26,12 +29,12 @@ import functools
 
 import torch
 
-from . import _nvcc
+from . import _nvcc, kernels
 
 SOURCE = _nvcc.CSRC / "stitch.cu"
-TILE = 4096            # elements per block of csrc/stitch.cu (kTile)
+TILE = 2048            # elements per block of csrc/stitch.cu (kTile)
 MAX_PLANES = 4
-MAX_ELEMS = 1 << 30    # exclusive: the lookback's 30-bit count
+MAX_ELEMS = 1 << 30    # exclusive: the kernels' limit
 
 
 def _check(op: str, planes: tuple, mask: torch.Tensor, same_length: bool):
@@ -75,22 +78,17 @@ def _pointers(tensors) -> list:
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load(SOURCE)
+    # ..., scratch, scratch_words, epoch, num_ops, stream
+    tail = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
+            ctypes.c_void_p]
     lib.gst_compact.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_void_p] + tail
     lib.gst_compact.restype = ctypes.c_int
     lib.gst_expand.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_longlong] + tail
     lib.gst_expand.restype = ctypes.c_int
     return lib
-
-
-def _scratch(n: int, device: torch.device) -> tuple[int, torch.Tensor]:
-    """(tiles, status words plus the tile counter) of one launch."""
-    tiles = -(-n // TILE)
-    return tiles, torch.empty(tiles + 1, dtype=torch.int32, device=device)
 
 
 # ---- compact --------------------------------------------------------------
@@ -132,13 +130,17 @@ def compact_ops(values: tuple, mask: torch.Tensor):
     dev = mask.device
     n = mask.shape[0]
     outs = tuple(torch.empty_like(v) for v in values)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
     if n == 0:
-        return outs, count
-    tiles, scratch = _scratch(n, dev)
+        return outs, torch.zeros((), dtype=torch.int32, device=dev)
+    # the count is written by the block of the last tile; the status words
+    # are the scan's on this stream, one a tile, with the next epoch
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, epoch = kernels._scan_scratch(dev, stream, -(-n // TILE))
     _nvcc.launch("compact_ops", _library().gst_compact, *_pointers(values),
                  *_pointers(outs), mask.data_ptr(), n, count.data_ptr(),
-                 scratch.data_ptr(), len(values), tiles, device=dev)
+                 scratch.data_ptr(), scratch.numel() - 1, epoch,
+                 len(values), device=dev, stream=stream)
     compact_ops.launches += 1
     return outs, count
 
@@ -191,11 +193,13 @@ def expand_ops(srcs: tuple, mask: torch.Tensor) -> tuple:
                  for _ in srcs)
     if n == 0:
         return outs
-    tiles, scratch = _scratch(n, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, epoch = kernels._scan_scratch(dev, stream, -(-n // TILE))
     lens = [s.shape[0] for s in srcs] + [0] * (MAX_PLANES - len(srcs))
     _nvcc.launch("expand_ops", _library().gst_expand, *_pointers(srcs),
                  *lens, *_pointers(outs), mask.data_ptr(), n,
-                 scratch.data_ptr(), len(srcs), tiles, device=dev)
+                 scratch.data_ptr(), scratch.numel() - 1, epoch, len(srcs),
+                 device=dev, stream=stream)
     expand_ops.launches += 1
     return outs
 

@@ -656,6 +656,118 @@ def test_stitch_checks_on_card(cuda):
             stitch.expand_ops.launches) == before
 
 
+def _check_stitch_call(ops, srcs, mask):
+    """compact_ops on `ops` and expand_ops on `srcs` under `mask`, each one
+    launch and bit-exact with its plain version."""
+    before = (stitch.compact_ops.launches, stitch.expand_ops.launches)
+    packed, cnt = stitch.compact_ops(ops, mask)
+    got = stitch.expand_ops(srcs, mask)
+    torch.cuda.synchronize()
+    assert (stitch.compact_ops.launches - before[0],
+            stitch.expand_ops.launches - before[1]) == (1, 1)
+    wpacked, wcnt = stitch.compact_plain(ops, mask)
+    count = int(wcnt)
+    assert int(cnt) == count
+    for p, w in zip(packed, wpacked):
+        assert torch.equal(p[:count], w[:count])
+    for gt, w in zip(got, stitch.expand_plain(srcs, mask)):
+        assert torch.equal(gt, w)
+
+
+@pytest.mark.parametrize("num_ops", [1, 2, 3, 4])
+def test_stitch_kernels_odd_offsets_match_plain(cuda, num_ops):
+    """Masks at byte offsets 1-15 and planes at element offsets 1-3, each
+    plane misaligned by its own amount (the kernels read the aligned-down
+    chunks and shift); plane 0 holds 4 values, so compact keeps ties in
+    input order only if its ranks are stable; streams as long as the mask
+    and shorter than the set count."""
+    n = 70_001
+    g = torch.Generator().manual_seed(num_ops)
+    mbuf = (torch.rand(n + 16, generator=g) < 0.5).to(cuda)
+    idx = torch.arange(n + 4, dtype=torch.int32)
+    ties = torch.randint(0, 4, (n + 4,), generator=g, dtype=torch.int32)
+    bufs = [b.to(cuda) for b in (ties, idx, -idx, ties * 7 + 1)[:num_ops]]
+    for mo in range(1, 16):
+        mask = mbuf[mo:mo + n]
+        offs = [(mo + q) % 3 + 1 for q in range(num_ops)]
+        ops = [b[o:o + n] for b, o in zip(bufs, offs)]
+        count = int(mask.sum())
+        for length in (n, count // 2):
+            srcs = [b[4 - o:4 - o + length] for b, o in zip(bufs, offs)]
+            _check_stitch_call(ops, srcs, mask)
+
+
+@pytest.mark.parametrize("kind", ["half", "sparse", "segments"])
+def test_stitch_kernels_many_tiles_match_plain(cuda, kind):
+    """2^24 + 5 elements, thousands of tiles: every lookback crosses many
+    32-word windows; 1 and 3 planes, a stream shorter than the set
+    count."""
+    assert stitch._library().gst_stitch_tile() == stitch.TILE
+    n = (1 << 24) + 5
+    mask = _stitch_mask(kind, n, cuda)
+    planes = [prng.hybrid_taus_bits(n, 30 + q, device=cuda)
+              .view(torch.int32) for q in range(3)]
+    count = int(mask.sum())
+    for ops in (planes[:1], planes):
+        _check_stitch_call(ops, ops, mask)
+        _check_stitch_call(ops, [p[:count - 1000] for p in ops], mask)
+
+
+def test_stitch_status_words_across_calls_and_streams(cuda):
+    """compact and expand interleaved with exclusive_scan and binning_pass
+    on one stream with no synchronisation, each on the status words and
+    ticket the one before left in the shared scratch; the same on a second
+    stream; then the epoch's wrap, which zeroes the scratch."""
+    n = (1 << 20) + 3 * 128
+    codes = _radix_codes("rand", n, 5, cuda)
+    x = codes.view(-1, 128)
+    bases, _ = radix16._bases_all_passes(codes)
+    masks = [_stitch_mask(k, n - 7 * j, cuda)
+             for j, k in enumerate(("half", "sparse", "segments"))]
+    ops = [codes, codes ^ 5]
+
+    def chain():
+        out = []
+        for p, mask in enumerate(masks):
+            m = mask.numel()
+            out.append(stitch.compact_ops([o[:m] for o in ops], mask))
+            out.append(kernels.exclusive_scan(codes[:m]))
+            out.append(stitch.expand_ops([o[:m // 3] for o in ops], mask))
+            out.append(radix16.binning_pass([x], bases[p], 4 * p, 5))
+        return out
+
+    def check(out):
+        for p, mask in enumerate(masks):
+            m = mask.numel()
+            (packed, cnt), scan, exp, (bo, bc) = out[4 * p:4 * p + 4]
+            wpacked, wcnt = stitch.compact_plain([o[:m] for o in ops], mask)
+            c = int(wcnt)
+            assert int(cnt) == c
+            assert all(torch.equal(a[:c], b[:c])
+                       for a, b in zip(packed, wpacked))
+            assert torch.equal(scan, kernels.exclusive_scan_plain(codes[:m]))
+            assert all(torch.equal(a, b) for a, b in zip(
+                exp, stitch.expand_plain([o[:m // 3] for o in ops], mask)))
+            wo, wc = radix16.binning_pass_plain([x], bases[p], 4 * p, 5)
+            assert torch.equal(bo[0], wo[0]) and torch.equal(bc, wc)
+
+    before = (stitch.compact_ops.launches, stitch.expand_ops.launches)
+    got = chain()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = chain()
+    torch.cuda.synchronize()
+    assert (stitch.compact_ops.launches - before[0],
+            stitch.expand_ops.launches - before[1]) == (6, 6)
+    check(got)
+    check(on_side)
+    key = (codes.device.index, torch.cuda.current_stream().cuda_stream)
+    kernels._SCAN_SCRATCH[key][1] = kernels._SCAN_EPOCHS
+    check(chain())
+    assert kernels._SCAN_SCRATCH[key][1] == 12
+
+
 def _segsort_case(lens, seed, dev):
     lens = np.asarray(lens, np.int64)
     offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]])).to(
