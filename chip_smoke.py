@@ -61,15 +61,20 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      "onesweep" (the default) and "radix16" on every key type and order,
      both payload widths, sort_pairs_wide and argsort, "forward_sweep" and
      "emulated_deadlocking" on keys and pairs, each held like phase 2 and
-     each call's launches of the four kernels asserted (the network's
-     (L - t + 1) in-tile passes and (L - t)(L - t + 1) / 2 global stages,
-     radix16's one histogram and one binning pass per pass that is not
-     skipped, per segment when segmented); then one sort each through
-     OneSweep, ForwardSweep and EmulatedDeadlocking;
+     each call's launches of the five kernels asserted (the network's
+     (L - t + 1) in-tile passes and, for each level above the tile, its
+     `mergesweep.level_trips` hyper trips and no global stage, radix16's
+     one histogram and one binning pass per pass that is not skipped, per
+     segment when segmented); then one sort each through OneSweep,
+     ForwardSweep and EmulatedDeadlocking;
   9. times: the new variants, device_radix and ffx end to end beside flat
      torch.sort, and each new kernel beside its bound, its plain version
      and the one torch call that computes the same function, if any; the
-     in-tile pass and a tail on 1 plane and on 3 planes (2 keys);
+     in-tile pass and a tail on 1 plane and on 3 planes (2 keys); the
+     strides above the tile of a keys sort (1 plane) and of a pairs sort
+     (3 planes, 2 keys), every level to 2^28, as hyper trips and as one
+     global stage a stride (the switch off), in turns, each form's
+     launches a sort read from the counters around its timed calls;
  10. compact and expand (csrc/stitch.cu) against their plain versions at
      n = 2^28 on 1, 2 and 3 planes, bit for bit, under masks with none, all,
      half and 1/64 set and an interval mask of random segments; expand
@@ -99,27 +104,35 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      uniform, E020 and all-equal keys, bit for bit: merge_tail on 1 plane
      (1 key), 3 planes (2 keys: pairs and argsort) and 4 planes (2 keys)
      at k below the tile, twice the tile and 2^28, each at its tile;
-     hyper_stage on the same planes as one trip and as the 2^28 pass's
-     split trips; binning_pass(digits=) on 1, 2 and 3 planes into 16
+     hyper_stage on the same planes at every trip of the network's levels
+     above the tile (its whole schedule: 14 trips on 1 plane, 17 on 3,
+     20 on 4), and on uniform keys also on a key plane of 16 values with
+     a distinct rider (2 planes, 1 key); binning_pass(digits=) on 1, 2
+     and 3 planes into 16
      row-aligned regions, uniform and skewed bucket planes, with its
      cursors_out;
  14. Backend.PALLAS at n = 2^28 for variant="splitsweep" and
      "mergesweep": every key type and order, both payload widths,
      sort_pairs_wide and argsort, each held like phase 2, and mergesweep's
-     keys and pairs again with the hyper switch on; each call's launches
-     asserted (splitsweep one digit-plane binning pass and one compact, so
-     no fallback; mergesweep log2(N/L) merge tails and the high strides'
-     global stages, or with the switch on hyper-stage trips and no global
-     stage); then a splitsweep keys, pairs and 64-bit pairs call record
-     their digit-plane pass and compact, each held bit for bit against its
-     plain version on the same operands and timed;
+     keys and pairs again with the hyper switch off
+     (GST_MERGESWEEP_HYPER=0); each call's launches asserted (splitsweep
+     one digit-plane binning pass and one compact, so no fallback;
+     mergesweep log2(N/L) merge tails and the high strides' hyper trips,
+     `level_trips`, and no global stage, or with the switch off one
+     global stage a stride and no trip); then a splitsweep keys, pairs and
+     64-bit pairs call record their digit-plane pass and compact, each
+     held bit for bit against its plain version on the same operands and
+     timed;
  15. times: the two variants end to end (mergesweep also with the hyper
-     switch on) beside radix16, device_radix and flat torch.sort;
+     switch off) beside radix16, device_radix and flat torch.sort;
      mergesweep's keys and pairs at segment lengths 2^20 .. 2^27 with the
      switch off and on, and at 2^28 (one segment: the flat sort); each new
      kernel beside its bound and its plain version, the merge tail on 1
      plane and on 3 planes (2 keys) beside local_stages on the same
-     strides;
+     strides, the first hyper trip of the 2^28 level on 1 plane and on 3
+     planes (2 keys) beside its byte bound and the shared-memory bytes
+     its transposes move by the design's count (not measured; they stay
+     off the kernels line);
  16. the distributed sort's masking kernel (csrc/exchange_mask.cu) against
      its plain version at one rank's receive buffer in an 8-GPU sort of
      2^30 pairs (D = 8 blocks of 2^25), on 2 and 3 operands, under uniform
@@ -943,15 +956,21 @@ def main() -> int:
 
     # ---- phase 8: the new PALLAS variants through the public entry points
     new_fns = (kernels.global_histogram, radix16.binning_pass,
-               bitonic.local_stages, bitonic.global_stage)
+               bitonic.local_stages, mergesweep.hyper_stage,
+               bitonic.global_stage)
 
     def new_counts():
         return tuple(f.launches for f in new_fns)
 
     def network_launches(num_ops):
+        # (L - t + 1) in-tile passes; above the tile each level's hyper
+        # trips and no global stage
         L = N.bit_length() - 1
-        t = (bitonic.network_tile_rows(dev, num_ops) * LANES).bit_length() - 1
-        return (0, 0, L - t + 1, (L - t) * (L - t + 1) // 2)
+        te = bitonic.network_tile_rows(dev, num_ops) * LANES
+        t = te.bit_length() - 1
+        trips = sum(len(mergesweep.level_trips(1 << lk, te, num_ops))
+                    for lk in range(t + 1, L + 1))
+        return (0, 0, L - t + 1, trips, 0)
 
     def radix16_launches(keys, segmented):
         codes = codec.encode_biased(keys)
@@ -959,8 +978,8 @@ def main() -> int:
                       for p in range(8))
         if segmented:
             segs = radix16.adversarial_segments(N, r16_rows)
-            return (1, 8 * (len(segs) + 1), 0, 0)
-        return (1, varying, 0, 0)
+            return (1, 8 * (len(segs) + 1), 0, 0, 0)
+        return (1, varying, 0, 0, 0)
 
     def expected(variant, keys, num_ops):
         if variant in ("onesweep", "forward_sweep"):
@@ -1064,9 +1083,13 @@ def main() -> int:
         del keys, out
         free()
     new_launches = dict(zip(("global_histogram", "binning_pass",
-                             "local_stages", "global_stage"), new_counts()))
-    _require(all(v > 0 for v in new_launches.values()),
+                             "local_stages", "hyper_stage", "global_stage"),
+                            new_counts()))
+    _require(all(v > 0 for k, v in new_launches.items()
+                 if k != "global_stage"),
              f"the new PALLAS variants missed a kernel: {new_launches}")
+    _require(new_launches["global_stage"] == 0,
+             f"the network ran global stages: {new_launches}")
     emit(phase="pallas_path_new_variants", n=N, radix16_tile_rows=r16_rows,
          network_tile_rows={k: bitonic.network_tile_rows(dev, k)
                             for k in (1, 3, 4)},
@@ -1166,6 +1189,61 @@ def main() -> int:
         library="none: no one torch call runs one compare-exchange stage")
     for kname, rec in new_times.items():
         emit(phase="per_kernel", kernel=kname, n=N, **rec)
+    # the above-tile strides of a 2^28 keys sort (1 plane, 1 key) and of a
+    # pairs sort (3 planes, 2 keys), each level k from twice the tile to N,
+    # both ways in turn: hyper trips (the default) and one global stage a
+    # stride (the switch off); bound: each launch reads and writes the
+    # planes once
+    switch = mergesweep._USE_HYPER
+    above = {}
+    for num_ops, num_keys in ((1, 1), (3, 2)):
+        tr = bitonic.network_tile_rows(dev, num_ops)
+        te = tr * LANES
+        levels = [1 << lk for lk in range(te.bit_length(), N.bit_length())]
+        net = [y.clone() for y in planes3[:num_ops]]
+        rec = {}
+        calls = [0]
+
+        def above_tile():
+            calls[0] += 1
+            for k in levels:
+                mergesweep.run_high_strides(net, k, tr, num_keys)
+
+        for hyper, form in ((True, "trips"), (False, "global_stages"),
+                            (True, "trips_2")):
+            # the launches of one sort's strides, read from the counters
+            # around the timed calls
+            mergesweep._USE_HYPER = hyper
+            calls[0] = 0
+            mergesweep.hyper_stage.launches = 0
+            bitonic.global_stage.launches = 0
+            try:
+                rec[f"{form}_ms"] = median_ms(above_tile, iters=3)
+            finally:
+                mergesweep._USE_HYPER = switch
+            counted = (mergesweep.hyper_stage.launches,
+                       bitonic.global_stage.launches)
+            _require(calls[0] > 0 and all(c % calls[0] == 0
+                                           for c in counted),
+                     f"{form}: {counted} launches in {calls[0]} calls")
+            rec[f"{form}_launches"] = dict(zip(
+                ("hyper_stage", "global_stage"),
+                (c // calls[0] for c in counted)))
+        trips = rec["trips_launches"]["hyper_stage"]
+        stages = rec["global_stages_launches"]["global_stage"]
+        _require(rec["trips_launches"]["global_stage"] == 0
+                 and rec["global_stages_launches"]["hyper_stage"] == 0
+                 and trips == sum(len(mergesweep.level_trips(k, te, num_ops))
+                                  for k in levels)
+                 and stages == sum((k // te).bit_length() - 1
+                                   for k in levels),
+                 f"above-tile launches on {num_ops} planes: {rec}")
+        rec.update(trips_bound_ms=trips * 8 * N * num_ops / bw * 1e3,
+                   global_stages_bound_ms=stages * 8 * N * num_ops / bw
+                   * 1e3)
+        above[num_ops] = rec
+        emit(phase="above_tile_strides", n=N, planes=num_ops,
+             num_keys=num_keys, tile_rows=tr, **rec)
     del x, u, ride, planes3, bases, net, gplanes
     free()
 
@@ -1561,6 +1639,26 @@ def main() -> int:
         want = plain([y.clone() for y in ops], *args)
         return got, want
 
+    def check_trips(ops, num_keys, te, what):
+        """The network's hyper trips above a tile of te at N, level by
+        level, each held against hyper_stage_plain on the same planes (the
+        kernel's copy and the plain copy each go through the whole
+        schedule); returns the [k, j_hi, j_lo, cols] trips."""
+        got = [y.clone() for y in ops]
+        want = [y.clone() for y in ops]
+        trips = []
+        k = 2 * te
+        while k <= N:
+            for j_hi, j_lo, cols in mergesweep.level_trips(k, te, len(ops)):
+                mergesweep.hyper_stage(got, k, j_hi, j_lo, num_keys, cols)
+                mergesweep.hyper_stage_plain(want, k, j_hi, j_lo, num_keys,
+                                             cols)
+                check_merge("hyper_stage", got, want,
+                            f"{what} k={k} trip {j_hi}..{j_lo}")
+                trips.append([k, j_hi, j_lo, cols])
+            k *= 2
+        return trips
+
     idx = torch.arange(N, dtype=torch.int32, device=dev)
     gen13 = torch.Generator(device=dev)
     gen13.manual_seed(SEED + 13)
@@ -1575,36 +1673,35 @@ def main() -> int:
         rides = tuple(prng.hybrid_taus_bits(N, SEED + j, device=dev)
                       .view(torch.int32) for j in (15, 16))
         # 3 planes (2 keys) is the (code, index, payload) of pairs and
-        # argsort, at its own tile
-        for num_ops, num_keys in ((1, 1), (3, 2), (4, 2)):
+        # argsort, 4 planes (2 keys) the 64-bit pairs', each at its own
+        # tile; the hyper trips of every network level above the tile (the
+        # sort's whole trip schedule), and on uniform keys also a key plane
+        # of 16 values with a distinct rider (2 planes, 1 key: equal keys
+        # make both sides of a pair take one element)
+        cases = ((1, 1), (3, 2), (4, 2)) + (((2, 1),) if name == "uniform"
+                                            else ())
+        for num_ops, num_keys in cases:
+            tied = (num_ops, num_keys) == (2, 1)
             tr = bitonic.network_tile_rows(dev, num_ops)
             te = tr * LANES
             ops = [x.view(-1, LANES), idx.view(-1, LANES),
                    rides[0].view(-1, LANES), rides[1].view(-1, LANES)]
             ops = ops[:num_ops]
-            for k in (te // 4, 2 * te, N):
-                check_merge("merge_tail", *in_place_pair(
-                    mergesweep.merge_tail, mergesweep.merge_tail_plain, ops,
-                    k, tr, num_keys), f"{name} k={k}, {num_ops} planes")
-            # one trip of as many stages as a block holds, then the 2^28
-            # pass's split trips, each against the plain strides
-            per_trip = (te // mergesweep.MIN_COLS).bit_length() - 1
-            k1 = te << per_trip
-            ((j_hi, j_lo, cols),) = mergesweep.hyper_trips(k1, te, te)
-            check_merge("hyper_stage", *in_place_pair(
-                mergesweep.hyper_stage, mergesweep.hyper_stage_plain, ops,
-                k1, j_hi, j_lo, num_keys, cols),
-                f"{name} k={k1} one trip, {num_ops} planes")
-            trips = mergesweep.hyper_trips(N, te, te)
-            for j_hi, j_lo, cols in trips:
-                check_merge("hyper_stage", *in_place_pair(
-                    mergesweep.hyper_stage, mergesweep.hyper_stage_plain,
-                    ops, N, j_hi, j_lo, num_keys, cols),
-                    f"{name} k=N trip {j_hi}..{j_lo}, {num_ops} planes")
+            if tied:
+                ops[0] = (x & 15).view(-1, LANES)
+            else:
+                for k in (te // 4, 2 * te, N):
+                    check_merge("merge_tail", *in_place_pair(
+                        mergesweep.merge_tail, mergesweep.merge_tail_plain,
+                        ops, k, tr, num_keys),
+                        f"{name} k={k}, {num_ops} planes")
+            trips = check_trips(ops, num_keys, te,
+                                f"{name}, {num_ops} planes")
             emit(phase="kernel_vs_plain", kernel="merge_tail+hyper_stage",
                  input=name, planes=num_ops, num_keys=num_keys, n=N,
-                 tile_rows=tr, tail_k=[te // 4, 2 * te, N],
-                 one_trip=[k1, per_trip], split_trips=trips, bit_exact=True)
+                 tile_rows=tr, tie_heavy_key=tied,
+                 tail_k=[] if tied else [te // 4, 2 * te, N],
+                 trips=len(trips), trip_schedule=trips, bit_exact=True)
             del ops
 
         # the digit-plane pass into 16 row-aligned regions of slack 1.35
@@ -1662,7 +1759,7 @@ def main() -> int:
         while k <= N:
             tails += 1
             if k > te and hyper:
-                trips += len(mergesweep.hyper_trips(k, te, te))
+                trips += len(mergesweep.level_trips(k, te, num_ops))
             elif k > te:
                 glob += (k // te).bit_length() - 1
             k *= 2
@@ -1687,12 +1784,14 @@ def main() -> int:
 
     for f in last_fns.values():
         f.launches = 0
+    # mergesweep with the hyper switch on (the default) on every entry
+    # point, then off (one global stage a stride) on keys and pairs
     hyper_default = mergesweep._USE_HYPER
-    for variant, hyper in (("splitsweep", False), ("mergesweep", False),
-                           ("mergesweep", True)):
+    for variant, hyper in (("splitsweep", True), ("mergesweep", True),
+                           ("mergesweep", False)):
         mergesweep._USE_HYPER = hyper
-        full = not hyper
-        tag = f"{variant}{' hyper' if hyper else ''}"
+        full = hyper
+        tag = f"{variant}{'' if hyper else ' global'}"
         pal = {"backend": gstt.Backend.PALLAS, "variant": variant}
         for kname, make in key_cases if full else key_cases[:1]:
             keys = make()
@@ -1879,10 +1978,12 @@ def main() -> int:
             ms, spread = e2e_ms(make_fn(backend, variant))
             emit(phase="end_to_end", what=what, route=route, n=N,
                  batch=batch, ms=ms, spread_ms=spread)
-        mergesweep._USE_HYPER = True
-        ms, spread = e2e_ms(make_fn(gstt.Backend.PALLAS, "mergesweep"))
-        mergesweep._USE_HYPER = hyper_default
-        emit(phase="end_to_end", what=what, route="pallas_mergesweep_hyper",
+        mergesweep._USE_HYPER = False
+        try:
+            ms, spread = e2e_ms(make_fn(gstt.Backend.PALLAS, "mergesweep"))
+        finally:
+            mergesweep._USE_HYPER = hyper_default
+        emit(phase="end_to_end", what=what, route="pallas_mergesweep_global",
              n=N, batch=batch, ms=ms, spread_ms=spread)
 
     # mergesweep's segment length, the switch off and on, up to 2^27 (one
@@ -1907,16 +2008,16 @@ def main() -> int:
     finally:
         gstt.clear_routing_override()
         mergesweep._USE_HYPER = hyper_default
-    best = min(seg_lengths, key=lambda s: seg_sweep["keys", s, False])
-    emit(phase="mergesweep_seg_best", what="keys", hyper=False,
-         seg_elems=best, ms=seg_sweep["keys", best, False],
+    best = min(seg_lengths, key=lambda s: seg_sweep["keys", s, True])
+    emit(phase="mergesweep_seg_best", what="keys", hyper=True,
+         seg_elems=best, ms=seg_sweep["keys", best, True],
          one_segment_ms=seg_sweep["keys", N, False],
          installed=row.mergesweep_seg_elems)
 
     x = codec.encode_biased(prng.make_test_keys(N, SEED, torch.uint32,
                                                 device=dev))
     # where a keys sort's time goes: mergesweep at the row's segment
-    # length with the switch off, splitsweep at the row's tile
+    # length with the switch on (the default), splitsweep at the row's tile
     K = N // seg_default
     runs1 = mergesweep._phase1([x], 1, K, seg_default)
     tr1 = bitonic.network_tile_rows(dev, 1)
@@ -1926,11 +2027,11 @@ def main() -> int:
     while k <= N:
         work = [y.clone() for y in runs1]
         steps[f"merge_pass_k{k}"] = median_ms(
-            lambda: mergesweep._run_merge_pass(work, k, tr1, 1, tr1 * LANES))
+            lambda: mergesweep._run_merge_pass(work, k, tr1, 1))
         k *= 2
     del runs1, work
     emit(phase="per_phase_mergesweep", what="keys", n=N,
-         seg_elems=seg_default, hyper=False, tile_rows=tr1, ms=steps,
+         seg_elems=seg_default, hyper=hyper_default, tile_rows=tr1, ms=steps,
          sum_ms=sum(steps.values()))
     planes, bucket, counts, cap_rows, _, overflow = splitsweep._prepare(
         x, (), r16_rows, 64, 1.35)
@@ -1954,15 +2055,7 @@ def main() -> int:
          cap_rows=cap_rows, ms=steps, sum_ms=sum(steps.values()))
     del planes, bucket, part, valid, regions, sorted_regions
     free()
-    te1 = tr1 * LANES
-    trips1 = mergesweep.hyper_trips(N, te1, te1)
-    j_hi, j_lo, cols = trips1[0]
-    # bytes: the plane read and written once; operations: 4 32-bit
-    # operations a pair and stage at the card's 32-bit non-tensor peak
-    stage_ops_ms = (N // 2) * 4 / PEAK_OPS_32 * 1e3
-    hyper_stages = (2 * j_hi // j_lo).bit_length() - 1
     plane_ms = 8 * N / bw * 1e3
-    work = [x.clone().view(-1, LANES)]
     last_times = {}
     # the merge tail at k = 2^28 on 1 plane (1 key) and 3 planes (2 keys:
     # pairs and argsort), each beside the network's own tail (local_stages
@@ -1988,17 +2081,30 @@ def main() -> int:
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations")
         del mt
-    last_times.update({
-        "hyper_stage": dict(
+    # the first trip of the 2^28 level (7 stages) on 1 plane (1 key) and 3
+    # planes (2 keys), bound by bytes (the planes read and written once);
+    # the shared-memory traffic the design leaves it: a write and a read of
+    # every element a plane for each transpose between register runs,
+    # ceil(stages / e) - 1 of them, e = log2 of the int4 a thread holds
+    for num_ops, num_keys in ((1, 1), (3, 2)):
+        te = bitonic.network_tile_rows(dev, num_ops) * LANES
+        j_hi, j_lo, cols = mergesweep.level_trips(N, te, num_ops)[0]
+        stages = (2 * j_hi // j_lo).bit_length() - 1
+        e = mergesweep.HYPER_ITEMS[num_ops].bit_length() - 1
+        transposes = -(-stages // e) - 1
+        hp = [x.clone().view(-1, LANES)] + [
+            payload.clone().view(-1, LANES) for _ in range(num_ops - 1)]
+        suffix = "" if num_ops == 1 else f"_{num_ops}"
+        last_times["hyper_stage" + suffix] = dict(
             ms=median_ms(lambda: mergesweep.hyper_stage(
-                work, N, j_hi, j_lo, 1, cols)),
+                hp, N, j_hi, j_lo, num_keys, cols)),
             plain_ms=median_ms(lambda: mergesweep.hyper_stage_plain(
-                work, N, j_hi, j_lo, 1, cols), iters=3),
-            stages=hyper_stages, trip=[j_hi, j_lo, cols],
-            bound_ms=max(plane_ms, hyper_stages * stage_ops_ms),
-            bound_by=("bytes" if plane_ms >= hyper_stages * stage_ops_ms
-                      else "operations")),
-    })
+                hp, N, j_hi, j_lo, num_keys, cols), iters=3),
+            stages=stages, planes=num_ops, num_keys=num_keys,
+            trip=[j_hi, j_lo, cols], bound_ms=num_ops * plane_ms,
+            bound_by="bytes", smem_transposes=transposes,
+            smem_bytes=transposes * 8 * N * num_ops)
+        del hp
     rows = N // LANES
     cap_rows = splitsweep._cap_rows(rows, 1.35)
     bases = (torch.arange(16, dtype=torch.int32, device=dev)
@@ -2024,7 +2130,7 @@ def main() -> int:
         emit(phase="per_kernel", kernel=kname, n=N, library_ms=None,
              library="none: no one torch call runs a partial Batcher merge "
                      "or places a partition at given cursors", **rec)
-    del x, work, bucket, payload
+    del x, bucket, payload
     free()
 
     # ---- phase 16: the exchange's masking kernel against its plain version
@@ -2685,9 +2791,14 @@ def main() -> int:
                 for key in ("local_stages_tail", "local_stages_in_tile_3",
                             "local_stages_tail_3")
                 for field in ("ms", "plain_ms", "bound_ms")}),
-        new_row("global_stage", "global_stage", "bitonic.cu",
-                "gpusorting_tpu/ops/bitonic.py:138",
-                new_times["global_stage"]),
+        # off the default path since the hyper trips carry the strides
+        # above the tile: its launches are mergesweep's with the switch off
+        dict(new_row("global_stage", "global_stage", "bitonic.cu",
+                     "gpusorting_tpu/ops/bitonic.py:138",
+                     new_times["global_stage"]),
+             launches=last_launches["global_stage"],
+             launches_from="mergesweep, GST_MERGESWEEP_HYPER=0",
+             default_path_launches=new_launches["global_stage"]),
         stitch_row("compact", "gpusorting_tpu/ops/stitch.py:85"),
         stitch_row("expand", "gpusorting_tpu/ops/stitch.py:324"),
         {"name": "edge_fixup", "route": "cuda",
@@ -2707,7 +2818,19 @@ def main() -> int:
              **{f"{field}_3_planes": last_times["merge_tail_3"][field]
                 for field in ("ms", "local_stages_tail_ms", "plain_ms",
                               "bound_ms")}),
-        last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172"),
+        dict(last_row("hyper_stage", "gpusorting_tpu/ops/mergesweep.py:172"),
+             redesigned="stages in registers, shared memory only between "
+                        "register runs; the network's and mergesweep's "
+                        "strides above the tile",
+             launches=new_launches["hyper_stage"]
+             + last_launches["hyper_stage"],
+             launches_network=new_launches["hyper_stage"],
+             launches_mergesweep=last_launches["hyper_stage"],
+             trip=last_times["hyper_stage"]["trip"],
+             **{f"{field}_3_planes": last_times["hyper_stage_3"][field]
+                for field in ("ms", "plain_ms", "bound_ms")},
+             above_tile_strides={
+                 "keys": above[1], "pairs_3_planes": above[3]}),
         {"name": "exchange_mask", "route": "cuda",
          "source": "gpusorting_tpu_torch/csrc/exchange_mask.cu",
          "replaces": "gpusorting_tpu/parallel/remote_exchange.py:106",

@@ -202,8 +202,9 @@ class OneSweep(GPUSorterBase):
     """Single-pass-scan family (reference: OneSweep.hlsl / OneSweep.cu).
 
     As in the JAX package, its PALLAS variant runs the bitonic network
-    (ops/bitonic.py): on the card the in-tile `local_stages` and the
-    cross-tile `global_stage` kernels of `csrc/bitonic.cu`.  The fused
+    (ops/bitonic.py): on the card the in-tile `local_stages` kernel of
+    `csrc/bitonic.cu` and the above-tile hyper trips of
+    `csrc/mergesweep.cu`.  The fused
     single-pass radix engine is variant "radix16"."""
 
     variant = "onesweep"

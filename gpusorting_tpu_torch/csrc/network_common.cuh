@@ -2,8 +2,8 @@
 // network's kernels (bitonic.cu, whose in-tile kernel also runs
 // mergesweep's merge tail) and mergesweep's hyper-stage kernel
 // (mergesweep.cu).  The register and warp-shuffle stages below serve the
-// in-tile kernel of bitonic.cu; the hyper stage runs its stages through
-// shared memory (`exchange_smem`).
+// in-tile kernel of bitonic.cu; the hyper stage runs its own register
+// stages on `exchange_regs`.
 //
 // A compare-exchange orders the pair (lo, hi) of NOPS int32 values, the
 // first num_keys forming a lexicographic key (signed order; the others ride
@@ -62,27 +62,7 @@ __device__ __forceinline__ long long pair_low(long long p, long long j) {
   return ((p & ~(j - 1)) << 1) | (p & (j - 1));
 }
 
-// One compare-exchange of the pair (lo, hi) of NOPS planes of `len` ints
-// each, laid out one after another in shared memory.
-template <int NOPS>
-__device__ __forceinline__ void exchange_smem(int* smem, int len, int lo,
-                                              int hi, bool ascending,
-                                              int num_keys) {
-  int a[NOPS], b[NOPS];
-#pragma unroll
-  for (int q = 0; q < NOPS; ++q) {
-    a[q] = smem[q * len + lo];
-    b[q] = smem[q * len + hi];
-  }
-  exchange<NOPS>(a, b, ascending, num_keys);
-#pragma unroll
-  for (int q = 0; q < NOPS; ++q) {
-    smem[q * len + lo] = a[q];
-    smem[q * len + hi] = b[q];
-  }
-}
-
-// ---- registers and warp shuffles (bitonic.cu's in-tile kernel) ---------
+// ---- registers and warp shuffles ---------------------------------------
 //
 // A thread holds E elements of each of NOPS planes in registers, v[q][e].
 // A stage whose stride pairs two of a thread's own elements runs in the

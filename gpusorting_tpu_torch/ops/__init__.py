@@ -8,17 +8,18 @@ engine (ops/rangesweep.py, whose exchange is the hand-written relocate
 kernel); everything else runs the flat `torch.sort` (ops/flat_sort.py).
 `backend=PALLAS` runs the engine family named by `variant=` (ops/radix.py):
 "onesweep" (the default) and "forward_sweep" the bitonic network, whose
-in-tile and cross-tile stages are hand-written kernels; "radix16" the fused
-radix-16 engine (global histogram and one binning pass per digit, both
-kernels) and "emulated_deadlocking" the same in adversarial tile-range
-segments; "device_radix" and "ffx" the reduce-then-scan engines (Upsweep,
-scan and downsweep kernels); "splitsweep" a 16-way splitter partition (the
-binning kernel in its digit-plane form, then bucket sorts and the compact
-kernel); "mergesweep" segment sorts and Batcher merge passes (merge-tail
-kernel, and global-stage or hyper-stage kernels above the tile, the latter
-under GST_MERGESWEEP_HYPER=1).  `tile_rows=` overrides the radix tile.  All
-sort the same biased key codes (core.codec), so outputs are bit-identical
-across routes.
+in-tile stages and above-tile hyper trips are hand-written kernels;
+"radix16" the fused radix-16 engine (global histogram and one binning pass
+per digit, both kernels) and "emulated_deadlocking" the same in
+adversarial tile-range segments; "device_radix" and "ffx" the
+reduce-then-scan engines (Upsweep, scan and downsweep kernels);
+"splitsweep" a 16-way splitter partition (the binning kernel in its
+digit-plane form, then bucket sorts and the compact kernel); "mergesweep"
+segment sorts and Batcher merge passes (merge-tail kernel, and hyper-stage
+trips above the tile, or one global-stage kernel a stride under
+GST_MERGESWEEP_HYPER=0, which governs the network's levels too).
+`tile_rows=` overrides the radix tile.  All sort the same biased key codes
+(core.codec), so outputs are bit-identical across routes.
 """
 
 from __future__ import annotations

@@ -17,8 +17,13 @@ Port of `gpusorting_tpu/ops/bitonic.py`.  For N = 2^L elements:
     or up to GROUP_BITS longer strides (the thread's elements spread over
     their bits).  The tile waits in shared memory between runs, with one
     barrier between two runs;
-  * each stride of at least one tile runs as one `global_stage` (same
-    source, replacing `_global_stage_kernel`) over the whole array.
+  * the strides of at least one tile of a level run as hyper trips
+    (`mergesweep.run_high_strides`: kernel `csrc/mergesweep.cu`, as many
+    consecutive strides a trip as its block holds, in one read and one
+    write of each plane); with GST_MERGESWEEP_HYPER=0, as one
+    `global_stage` a stride (same source as the in-tile kernel, replacing
+    `_global_stage_kernel`) over the whole array.  JAX runs one global
+    stage a stride; the compare-exchanges and their order are the same.
 
 The network compares int32 planes lexicographically over the first
 `num_keys` and carries the rest.  Key codes are the port's sign-biased
@@ -26,8 +31,9 @@ carriers, so signed order is u32 order.  Stability comes from an index
 tiebreak (`sort_codes_stable_with`); the network itself is not stable.
 The tile is the largest power of two of 128-key rows whose planes fit the
 tuning row's `network_smem_bytes`.  A sort of N = 2^L with a 2^t-key tile
-launches (L - t + 1) `local_stages` and (L - t)(L - t + 1) / 2
-`global_stage`.
+launches (L - t + 1) `local_stages` and, for each level k above the tile,
+len(mergesweep.level_trips(k, 2^t, planes)) `hyper_stage`; with the hyper
+switch off, (L - t)(L - t + 1) / 2 `global_stage` in their place.
 """
 
 from __future__ import annotations
@@ -381,13 +387,15 @@ def sort_network_i32(operands, num_keys: int):
     # stages below run in place on buffers the network owns
     ops = local_stages(padded, in_tile_schedule(tile_elems), num_keys,
                        tile_rows)
-    # levels above the tile: global stages, then the level's in-tile tail
+    # levels above the tile: the high strides (hyper trips, or global
+    # stages with the switch off), then the level's in-tile tail.
+    # mergesweep imports this module for its stages and tiles, so it is
+    # imported here, at the call, and not at the top
+    from . import mergesweep
+
     k = tile_elems * 2
     while k <= N:
-        j = k // 2
-        while j >= tile_elems:
-            global_stage(ops, j, k, num_keys, tile_rows)
-            j //= 2
+        mergesweep.run_high_strides(ops, k, tile_rows, num_keys)
         ops = local_stages(ops, tail_schedule(tile_elems, k), num_keys,
                            tile_rows)
         k *= 2

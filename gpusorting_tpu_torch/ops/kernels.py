@@ -201,14 +201,22 @@ def _scan_library() -> ctypes.CDLL:
 # any of these kernels, takes the next epoch, so the words an earlier
 # call left never read as this call's, and the buffer is zeroed again only
 # when the 30-bit epoch wraps.  Calls on one stream run in order, so they
-# share it; calls on two streams never do.
+# share it; calls on two streams never do.  A CUDA graph would replay the
+# epoch it captured, and the status words its last replay left would read
+# as ready, so no call takes the scratch under capture.
 _SCAN_SCRATCH: dict = {}
 _SCAN_EPOCHS = (1 << 30) - 1
 
 
 def _scan_scratch(dev: torch.device, stream: int, words: int) -> tuple:
     """(buffer, epoch) for one call that needs `words` status words on
-    `stream` (the current stream's handle)."""
+    `stream` (the current stream's handle).  Raises under CUDA-graph
+    capture."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the chained-scan kernels (exclusive_scan, binning_pass, "
+            "compact_ops, expand_ops) cannot be captured in a CUDA graph: "
+            "a replay would reuse the captured epoch of their status words")
     key = (dev.index, stream)
     entry = _SCAN_SCRATCH.get(key)
     if entry is None or entry[0].numel() < 1 + words:

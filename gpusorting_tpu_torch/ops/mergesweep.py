@@ -9,11 +9,13 @@ with INT32_MAX), in segments of L = `seg_elems`:
      ones; a library sort either way).  Two keys sort as one int64
      composite; more keys as a chain of stable sorts, last key first.
   2. phase 2: merge passes k = 2L, 4L, ..., N of the bitonic network, each
-       - its strides of at least a tile: one `bitonic.global_stage` each
-         (JAX calls `_build_global_stage` there), or, with the hyper switch
-         on, `hyper_stage` trips (kernel `csrc/mergesweep.cu`, replacing
-         `_hyper_stage_kernel`), each taking as many consecutive strides in
-         one read and one write as shared memory holds;
+       - its strides of at least a tile (`run_high_strides`, which the
+         network's levels above the tile run too): `hyper_stage` trips
+         (kernel `csrc/mergesweep.cu`, replacing `_hyper_stage_kernel`),
+         each taking as many consecutive strides in one read and one write
+         as a block holds (`level_trips`); or, with the hyper switch off,
+         one `bitonic.global_stage` each (JAX calls `_build_global_stage`
+         there);
        - its strides below the tile: one `merge_tail` (replacing
          `_merge_tail_kernel`), a launch of the network's in-tile kernel
          (`csrc/bitonic.cu`, `local_stages`' register runs) on the
@@ -22,13 +24,17 @@ with INT32_MAX), in segments of L = `seg_elems`:
 The tile is the network's shared-memory tile for the tensor's device and
 operand count (`bitonic.network_tile_rows`); JAX sizes its own by VMEM
 (`_tile_rows_for`), and the output does not depend on it.  The hyper switch
-is `_USE_HYPER`, read from GST_MERGESWEEP_HYPER at import and off by
-default, as in JAX.  A trip gathers W = 2^s members of a group (s stages) x
-cols >= 8 consecutive offsets, W * cols elements a plane in shared memory,
-so a trip takes at most log2(tile_elems / 8) stages: at N = 2^28 with the
-one-plane 2^15-key tile of the H100 row, at most 12, so the last pass's 13
-high strides take 2 trips (7 + 6) and the whole keys sort 3 trips at the
-row's L = 2^26 (5 at 2^24).
+is `_USE_HYPER`, read from GST_MERGESWEEP_HYPER at import: on ("1") by
+default, where JAX keeps it off for a Mosaic crash that does not apply to
+CUDA; "0" runs one global stage a stride.  A trip gathers W = 2^s members
+of a group (s stages) x cols consecutive offsets, W * cols elements a
+plane, which the kernel holds in its threads' registers and, between
+register runs, in shared memory.  The engines size every trip's group to
+the most a block holds (`level_trips`: 2^15 elements on one plane, at most
+the tile), so a trip takes at most log2(budget / 8) stages: at N = 2^28 on
+one plane (12 stages a trip) the last level's 13 high strides take 2 trips
+(7 + 6), a keys sort through the network 14 trips and a pairs sort (3
+planes, 2^14 elements, 11 stages a trip) 17.
 """
 
 from __future__ import annotations
@@ -47,8 +53,13 @@ MAX_OPS = bitonic.MAX_OPS
 INT32_MAX = bitonic.INT32_MAX
 MIN_COLS = 8           # consecutive offsets a hyper-stage gather reads
 SOURCE = _nvcc.CSRC / "mergesweep.cu"
+# csrc/mergesweep.cu: int4 slots a thread holds for 1-4 planes (kItems),
+# and its most threads a block (kMaxThreads), so a group of W x cols
+# elements a plane takes W cols / (4 items) threads, 1 to HYPER_MAX_THREADS
+HYPER_ITEMS = {1: 16, 2: 8, 3: 8, 4: 4}
+HYPER_MAX_THREADS = 512
 
-_USE_HYPER = os.environ.get("GST_MERGESWEEP_HYPER", "0") == "1"
+_USE_HYPER = os.environ.get("GST_MERGESWEEP_HYPER", "1") == "1"
 
 
 def _pow2(x: int) -> bool:
@@ -171,11 +182,13 @@ def hyper_stage_plain(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
 
 def hyper_stage(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
                 cols: int = MIN_COLS) -> list:
-    """The consecutive strides j_hi, j_hi/2, ..., j_lo of merge pass k over
-    1-4 (rows, 128) int32 planes of N = rows * 128 elements, N a power of
-    two, IN PLACE, in one read and one write of each plane.  A block holds
-    W = 2 j_hi / j_lo members x `cols` consecutive offsets of every plane in
-    shared memory (cols a power of two in [8, j_lo]).  Returns the planes.
+    """The consecutive strides j_hi, j_hi/2, ..., j_lo of level k over 1-4
+    (rows, 128) int32 planes of N = rows * 128 elements, N a power of two,
+    IN PLACE, in one read and one write of each plane.  A block takes
+    W = 2 j_hi / j_lo members x `cols` consecutive offsets of every plane
+    (cols a power of two in [8, j_lo]), in its threads' registers: W cols /
+    (4 HYPER_ITEMS[planes]) threads, which on a card must be 1 to
+    HYPER_MAX_THREADS.  Returns the planes.
 
     CUDA planes launch `csrc/mergesweep.cu` once (or raise); CPU planes
     take `hyper_stage_plain`."""
@@ -186,6 +199,13 @@ def hyper_stage(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
     if planes[0].device.type == "cpu":
         return hyper_stage_plain(planes, k, j_hi, j_lo, num_keys, cols)
     dev = _check_cuda("hyper_stage", planes)
+    slots = 2 * j_hi // j_lo * cols // 4
+    items = HYPER_ITEMS[len(planes)]
+    if not items <= slots <= items * HYPER_MAX_THREADS:
+        raise ValueError(f"hyper_stage: a group of {4 * slots} elements a "
+                         f"plane is not {4 * items} to "
+                         f"{4 * items * HYPER_MAX_THREADS} ({items} int4 a "
+                         f"thread, 1 to {HYPER_MAX_THREADS} threads)")
     _nvcc.launch("hyper_stage", _library().gst_hyper_stage, *_spare(planes),
                  len(planes), num_keys, planes[0].numel(), k, j_hi, j_lo,
                  cols, device=dev)
@@ -198,7 +218,7 @@ hyper_stage.launches = 0
 
 def hyper_trips(k: int, tile_elems: int, budget_elems: int):
     """The (j_hi, j_lo, cols) trips that cover the strides k/2 .. tile_elems
-    of pass k, top stride first: as few trips as a block of `budget_elems`
+    of level k, top stride first: as few trips as a block of `budget_elems`
     elements a plane allows (W <= budget / 8), the stages split evenly, and
     each trip's cols as large as the budget and j_lo allow."""
     stages = (k // tile_elems).bit_length() - 1
@@ -218,22 +238,41 @@ def hyper_trips(k: int, tile_elems: int, budget_elems: int):
     return out
 
 
+def level_trips(k: int, tile_elems: int, num_ops: int):
+    """The engines' hyper trips of level k's strides k/2 .. tile_elems on
+    `num_ops` planes: `hyper_trips` with a budget of the most elements a
+    plane one block holds (HYPER_MAX_THREADS threads of HYPER_ITEMS[num_ops]
+    int4: 2^15 on one plane, 2^14 on two or three, 2^13 on four, which is
+    the H100 row's network tile for each), at most the tile."""
+    most = 4 * HYPER_ITEMS[num_ops] * HYPER_MAX_THREADS
+    return hyper_trips(k, tile_elems, min(most, tile_elems))
+
+
 # ---- the engine -----------------------------------------------------------
 
 
-def _run_merge_pass(ops, k: int, tile_rows: int, num_keys: int,
-                    budget_elems: int):
+def run_high_strides(ops, k: int, tile_rows: int, num_keys: int) -> None:
+    """The strides k/2 .. tile of level k (k above the tile) on (R, 128)
+    int32 planes, in place: `hyper_stage` trips (`level_trips`) or, with
+    the hyper switch off, one `bitonic.global_stage` a stride.  Both run
+    the same compare-exchanges in the same order.  The network's levels
+    above the tile and mergesweep's passes share it."""
+    tile_elems = tile_rows * LANES
+    if _USE_HYPER:
+        for j_hi, j_lo, cols in level_trips(k, tile_elems, len(ops)):
+            hyper_stage(ops, k, j_hi, j_lo, num_keys, cols)
+        return
+    j = k // 2
+    while j >= tile_elems:
+        bitonic.global_stage(ops, j, k, num_keys, tile_rows)
+        j //= 2
+
+
+def _run_merge_pass(ops, k: int, tile_rows: int, num_keys: int):
     """One merge pass (all strides k/2 .. 1) on (R, 128) int32 planes, in
     place."""
-    tile_elems = tile_rows * LANES
-    if k > tile_elems and not _USE_HYPER:
-        j = k // 2
-        while j >= tile_elems:
-            bitonic.global_stage(ops, j, k, num_keys, tile_rows)
-            j //= 2
-    elif k > tile_elems:
-        for j_hi, j_lo, cols in hyper_trips(k, tile_elems, budget_elems):
-            hyper_stage(ops, k, j_hi, j_lo, num_keys, cols)
+    if k > tile_rows * LANES:
+        run_high_strides(ops, k, tile_rows, num_keys)
     return merge_tail(ops, k, tile_rows, num_keys)
 
 
@@ -318,12 +357,10 @@ def merge_sort_network_i32(operands, num_keys: int,
         return tuple(torch.gather(x, 1, perm).view(N)[:n] for x in flat)
 
     ops = _phase1(padded, num_keys, K, L)
-    budget_rows = bitonic.network_tile_rows(dev, num_ops)
-    tile_rows = min(budget_rows, R)
+    tile_rows = min(bitonic.network_tile_rows(dev, num_ops), R)
     k = 2 * L
     while k <= N:
-        ops = _run_merge_pass(ops, k, tile_rows, num_keys,
-                              budget_rows * LANES)
+        ops = _run_merge_pass(ops, k, tile_rows, num_keys)
         k *= 2
     return tuple(y.reshape(N)[:n] for y in ops)
 

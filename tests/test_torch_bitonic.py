@@ -5,11 +5,13 @@ against gpusorting_tpu, bit for bit.
 The same numpy inputs go through the JAX package on the CPU (its Pallas
 kernels in interpret mode, as tests/test_bitonic.py runs them) and through
 the port on device="cpu".  The network is deterministic, so the planes
-after any pass match too, ties included.  To run global stages at n of
-about 16K, the JAX package's tuning override sets `vmem_limit_bytes` to
-49152 (8-row tiles for up to 4 operands) and the port's sets
-`network_smem_bytes` to the same 8-row tile.  The CUDA kernels are tested
-on the card by tests/test_torch_cuda.py.
+after any pass match too, ties included.  To run the levels above the tile
+at n of about 16K, the JAX package's tuning override sets
+`vmem_limit_bytes` to 49152 (8-row tiles for up to 4 operands) and the
+port's sets `network_smem_bytes` to the same 8-row tile.  The port runs
+those levels as hyper trips by default (JAX as global stages; the same
+compare-exchanges in the same order); the tests hold both switch settings.
+The CUDA kernels are tested on the card by tests/test_torch_cuda.py.
 """
 
 import dataclasses
@@ -19,10 +21,11 @@ import numpy as np
 import pytest
 import torch
 
+import gpusorting_tpu as gst
 from gpusorting_tpu.core import config as jconfig
 from gpusorting_tpu.ops import bitonic as jbitonic
 from gpusorting_tpu_torch.core import codec, config
-from gpusorting_tpu_torch.ops import bitonic
+from gpusorting_tpu_torch.ops import bitonic, mergesweep
 
 TILE = 8                       # rows of 128 keys
 TILE_ELEMS = TILE * 128
@@ -287,6 +290,30 @@ def test_sort_codes_stable_with_matches_jax(tile8, rides):
                                   _VALS[order])
 
 
+@pytest.mark.parametrize("rides", [0, 1, 2])
+def test_network_with_global_stages_matches_jax(monkeypatch, tile8, rides):
+    """With the hyper switch off (GST_MERGESWEEP_HYPER=0) the levels above
+    the tile run one global stage a stride, as in JAX: keys, and the
+    stable sort on 3 and 4 planes, bit for bit (the tests above hold the
+    default, hyper trips)."""
+    monkeypatch.setattr(mergesweep, "_USE_HYPER", False)
+    tile8(1 + rides + (rides > 0))
+    ride_u32 = (_VALS, _VALS2)[:rides]
+    if rides:
+        want = jbitonic.sort_codes_stable_with(jnp.asarray(_KEYS),
+                                               *map(jnp.asarray, ride_u32))
+        got = bitonic.sort_codes_stable_with(
+            _t(_KEYS), *[torch.from_numpy(r.copy()).view(torch.int32)
+                         for r in ride_u32])
+    else:
+        want = (jbitonic.sort_codes(jnp.asarray(_KEYS)),)
+        got = (bitonic.sort_codes(_t(_KEYS)),)
+    np.testing.assert_array_equal(_u32(got[0]), np.asarray(want[0]))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy().view(np.uint32),
+                                      np.asarray(w))
+
+
 def test_sort_network_i32_matches_jax(tile8):
     """Two keys, every plane a key (ties leave nothing to tell apart)."""
     tile8(2)
@@ -299,25 +326,23 @@ def test_sort_network_i32_matches_jax(tile8):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("hyper", [False, True], ids=["off", "on"])
 @pytest.mark.parametrize("n", [0, 1, 1024, 5000, 1 << 14])
-def test_network_launches_and_input_untouched(monkeypatch, tile8, n):
-    """(L - t + 1) in-tile passes and (L - t)(L - t + 1) / 2 global stages
-    for N = 2^L and a 2^t-key tile; the caller's planes are never
-    written, also when no pad is needed."""
+def test_network_launches_and_input_untouched(monkeypatch, tile8, n, hyper):
+    """(L - t + 1) in-tile passes for N = 2^L and a 2^t-key tile; above the
+    tile, each level's `level_trips` hyper trips and no global stage, or
+    with the switch off (L - t)(L - t + 1) / 2 global stages and no trip;
+    the caller's planes are never written, also when no pad is needed."""
     tile8(3)
-    calls = {"local": 0, "global": 0}
-    real_local, real_global = bitonic.local_stages, bitonic.global_stage
-
-    def local(*a):
-        calls["local"] += 1
-        return real_local(*a)
-
-    def glob(*a):
-        calls["global"] += 1
-        return real_global(*a)
-
-    monkeypatch.setattr(bitonic, "local_stages", local)
-    monkeypatch.setattr(bitonic, "global_stage", glob)
+    monkeypatch.setattr(mergesweep, "_USE_HYPER", hyper)
+    calls = {"local": 0, "global": 0, "hyper": 0}
+    for mod, name, key in ((bitonic, "local_stages", "local"),
+                           (bitonic, "global_stage", "global"),
+                           (mergesweep, "hyper_stage", "hyper")):
+        def spy(*a, _real=getattr(mod, name), _key=key):
+            calls[_key] += 1
+            return _real(*a)
+        monkeypatch.setattr(mod, name, spy)
     codes = _t(_KEYS[:n] if n <= _KEYS.size else np.resize(_KEYS, n))
     vals = torch.arange(n, dtype=torch.int32)
     before = (codes.clone(), vals.clone())
@@ -328,7 +353,45 @@ def test_network_launches_and_input_untouched(monkeypatch, tile8, n):
     assert torch.equal(codes, before[0]) and torch.equal(vals, before[1])
     L = max(10, (n - 1).bit_length())
     t = min(TILE_ELEMS, 1 << L).bit_length() - 1
-    assert calls == {"local": L - t + 1, "global": (L - t) * (L - t + 1) // 2}
+    trips = sum(len(mergesweep.level_trips(1 << lk, 1 << t, 3))
+                for lk in range(t + 1, L + 1))
+    assert calls == {"local": L - t + 1,
+                     "global": 0 if hyper else (L - t) * (L - t + 1) // 2,
+                     "hyper": trips if hyper else 0}
+
+
+@pytest.mark.parametrize("rides", [0, 1])
+def test_network_level_in_two_trips_matches_jax_oracle(monkeypatch, tile8,
+                                                       rides):
+    """n = 2^18 - 5 with 8-row tiles: a trip holds log2(1024 / 8) = 7
+    stages, so the level 2^18 (8 strides above the tile) runs in two hyper
+    trips.  Keys, and a stable sort with one ride, against JAX's flat
+    oracle (backend=XLA), bit for bit."""
+    tile8(1 + 2 * rides)
+    n = (1 << 18) - 5
+    seen = []
+    real = mergesweep.hyper_stage
+
+    def spy(planes, k, *a):
+        seen.append(k)
+        return real(planes, k, *a)
+    monkeypatch.setattr(mergesweep, "hyper_stage", spy)
+    rng = np.random.default_rng(18 + rides)
+    keys = rng.integers(0, 2**32, n, dtype=np.uint32)
+    keys[::3] = keys[1]                                 # ties
+    vals = rng.integers(0, 2**32, n, dtype=np.uint32)
+    if rides:
+        wk, wv = gst.sort_pairs(jnp.asarray(keys), jnp.asarray(vals),
+                                backend=gst.Backend.XLA)
+        gk, gv = bitonic.sort_codes_stable_with(
+            _t(keys), torch.from_numpy(vals).view(torch.int32))
+        np.testing.assert_array_equal(gv.numpy().view(np.uint32),
+                                      np.asarray(wv))
+    else:
+        wk = gst.sort(jnp.asarray(keys), backend=gst.Backend.XLA)
+        gk = bitonic.sort_codes(_t(keys))
+    np.testing.assert_array_equal(_u32(gk), np.asarray(wk))
+    assert [seen.count(1 << lk) for lk in range(11, 19)] == [1] * 7 + [2]
 
 
 def test_network_tile_rows():

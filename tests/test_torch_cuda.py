@@ -563,7 +563,8 @@ def test_network_and_radix16_engines_match_torch_sort(cuda, n):
     w = v ^ 0x5A5A5A5A
     want = torch.sort(k, stable=True)
     fns = (kernels.global_histogram, radix16.binning_pass,
-           bitonic.local_stages, bitonic.global_stage)
+           bitonic.local_stages, mergesweep.hyper_stage,
+           bitonic.global_stage)
     counts = [f.launches for f in fns]
     assert torch.equal(bitonic.sort_codes(k), want.values)
     sk, sv, sw = bitonic.sort_codes_stable_with(k, v, w)
@@ -579,8 +580,9 @@ def test_network_and_radix16_engines_match_torch_sort(cuda, n):
         sw, w[want.indices])
     torch.cuda.synchronize()
     grew = [f.launches > c for f, c in zip(fns, counts)]
-    # a network of at most one tile runs no global stage
-    assert grew == [True, True, True, n > 1 << 13]
+    # a network of at most one tile runs no hyper trip; above it the trips
+    # take every high stride, so no global stage runs
+    assert grew == [True, True, True, n > 1 << 13, False]
 
 
 # ---- the stitch kernels (compact, expand) and the segmented sort ------------
@@ -877,6 +879,126 @@ def test_merge_kernels_match_plain(cuda, num_ops, num_keys):
     assert (mergesweep.merge_tail.launches - before[0],
             mergesweep.hyper_stage.launches - before[1]) == (
         3, 1 + 2 * len(trips))
+
+
+_ALL_KEYS = [(o, k) for o in (1, 2, 3, 4) for k in range(1, o + 1)]
+
+
+@pytest.mark.parametrize("num_ops,num_keys", _ALL_KEYS)
+def test_hyper_kernel_every_block_shape_matches_plain(cuda, num_ops,
+                                                      num_keys):
+    """hyper_stage against hyper_stage_plain at every group the kernel
+    takes: W = 2 .. the most one block holds, every cols from one thread's
+    slots to HYPER_MAX_THREADS threads (single-run trips in registers alone
+    and trips with 1-3 shared-memory transposes), k = 2 j_hi (the groups
+    alternate direction) and k = n; plane 0 tie-heavy with distinct riders
+    (the tie rule) and all-equal."""
+    n = 1 << 20
+    items = mergesweep.HYPER_ITEMS[num_ops]
+    most = 4 * items * mergesweep.HYPER_MAX_THREADS
+    ties = _net_planes(num_ops, n, 40 + num_ops, cuda)
+    equal = [torch.full_like(ties[0], 7)] + ties[1:]
+    shapes = 0
+    before = mergesweep.hyper_stage.launches
+    for planes in (ties, equal):
+        w = 2
+        while 8 * w <= most:
+            j_lo = n // (2 * w)
+            j_hi = j_lo * w // 2
+            cols = max(8, 4 * items // w)
+            while cols <= min(j_lo, most // w):
+                for k in (2 * j_hi, n):
+                    got = mergesweep.hyper_stage([p.clone() for p in planes],
+                                                 k, j_hi, j_lo, num_keys,
+                                                 cols)
+                    want = mergesweep.hyper_stage_plain(
+                        [p.clone() for p in planes], k, j_hi, j_lo,
+                        num_keys, cols)
+                    for g, w_ in zip(got, want):
+                        assert torch.equal(g, w_), (w, cols, k)
+                    shapes += 1
+                cols *= 2
+            w *= 2
+    torch.cuda.synchronize()
+    assert mergesweep.hyper_stage.launches - before == shapes > 0
+
+
+def test_hyper_kernel_limits_on_card(cuda):
+    """A group outside one block's threads raises before any launch (the
+    largest and smallest groups the wrapper lets through launch in
+    test_hyper_kernel_every_block_shape_matches_plain)."""
+    x = [torch.zeros((1 << 13, 128), dtype=torch.int32, device=cuda)]
+    before = mergesweep.hyper_stage.launches
+    with pytest.raises(ValueError, match="group of 32 elements"):
+        mergesweep.hyper_stage(x, 1 << 16, 1 << 14, 1 << 14, 1, 16)
+    with pytest.raises(ValueError, match="group of 65536 elements"):
+        mergesweep.hyper_stage(x, 1 << 20, 1 << 15, 1 << 14, 1, 1 << 14)
+    assert mergesweep.hyper_stage.launches == before
+
+
+@pytest.mark.parametrize("hyper", [False, True], ids=["off", "on"])
+def test_sort_network_hyper_trips_on_card(cuda, monkeypatch, hyper):
+    """sort_network_i32 at 2^20 + 3 against torch.sort(stable=True), keys
+    and a stable sort with two riders: with the switch on, each level above
+    the tile runs its `level_trips` and no global stage; off, one global
+    stage a stride and no trip."""
+    monkeypatch.setattr(mergesweep, "_USE_HYPER", hyper)
+    n = (1 << 20) + 3
+    k = _codes("dup16", n, 7, cuda)
+    v = prng.hybrid_taus_bits(n, 8, device=cuda).view(torch.int32)
+    want = torch.sort(k, stable=True)
+    want_calls = [0, 0]
+    for num_ops in (1, 4):
+        te = bitonic.network_tile_rows(cuda, num_ops) * 128
+        for lk in range(te.bit_length(), 22):
+            if hyper:
+                want_calls[0] += len(mergesweep.level_trips(1 << lk, te,
+                                                            num_ops))
+            else:
+                want_calls[1] += lk - te.bit_length() + 1
+    before = (mergesweep.hyper_stage.launches, bitonic.global_stage.launches)
+    assert torch.equal(bitonic.sort_codes(k), want.values)
+    sk, sv, sw = bitonic.sort_codes_stable_with(k, v, v ^ 3)
+    assert torch.equal(sk, want.values)
+    assert torch.equal(sv, v[want.indices])
+    assert torch.equal(sw, (v ^ 3)[want.indices])
+    torch.cuda.synchronize()
+    assert [mergesweep.hyper_stage.launches - before[0],
+            bitonic.global_stage.launches - before[1]] == want_calls
+
+
+def test_chained_kernels_refuse_graph_capture(cuda):
+    """The four kernels on the chained scans' scratch raise under CUDA-graph
+    capture (a replay would reuse the captured epoch); outside it they
+    run."""
+    x = torch.arange(1 << 16, dtype=torch.int32, device=cuda)
+    planes = [x.view(-1, 128)]
+    mask = (x & 1) == 0
+    calls = {
+        kernels.exclusive_scan: lambda: kernels.exclusive_scan(x),
+        radix16.binning_pass: lambda: radix16.binning_pass(
+            planes, torch.zeros(16, dtype=torch.int32, device=cuda), 0, 32),
+        stitch.compact_ops: lambda: stitch.compact_ops((x,), mask),
+        stitch.expand_ops: lambda: stitch.expand_ops((x,), mask),
+    }
+    for fn in calls.values():     # built and run once outside capture
+        fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    for wrapper, fn in calls.items():
+        before = wrapper.launches
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                with pytest.raises(RuntimeError, match="CUDA graph"):
+                    fn()
+            finally:
+                graph.capture_end()
+        assert wrapper.launches == before, wrapper.__name__
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("k_of_tile", [0.25, 2, 1024],

@@ -12,9 +12,10 @@ packages get tiny tiles here: the JAX package's tuning override sets
 `vmem_limit_bytes` to 12288 (8-row tiles) on every mode, and the port's
 sets `network_smem_bytes` to 2- or 64-row tiles for the operand count;
 the output does not depend on the tile.  Then global stages, hyper-stage
-trips (two in one pass with the 2-row tile) and merge tails all run, with
-the hyper switch (`_USE_HYPER`) off and on in both packages.  The CUDA
-kernels are tested on the card by tests/test_torch_cuda.py.
+trips (two in one pass with the 2-row tile) and merge tails all
+run, with the hyper switch (`_USE_HYPER`) off and on in both packages (on
+by default in the port, off in JAX).  The CUDA kernels are tested on the
+card by tests/test_torch_cuda.py.
 """
 
 import dataclasses
@@ -177,6 +178,36 @@ def test_hyper_trips_and_checks():
         mergesweep.merge_tail(planes, 3000, 8, 1)
 
 
+def test_level_trips_of_the_h100_schedules():
+    """The engines' trips take the most a block holds, HYPER_MAX_THREADS
+    threads of HYPER_ITEMS int4 (2^15 elements on one plane, 2^14 on two or
+    three, 2^13 on four): on the H100 row's tiles that is the tile, so 12
+    and 11 stages a trip: a 2^28 keys sort's 91 high strides in 14 trips, a
+    pairs sort's 105 in 17, every trip's group the budget.  A smaller tile
+    caps the budget."""
+    for num_ops, tile in ((1, 1 << 15), (2, 1 << 14), (3, 1 << 14),
+                          (4, 1 << 13)):
+        assert (4 * mergesweep.HYPER_ITEMS[num_ops]
+                * mergesweep.HYPER_MAX_THREADS) == tile
+        assert mergesweep.level_trips(1 << 28, tile, num_ops) == \
+            mergesweep.hyper_trips(1 << 28, tile, tile)
+    assert mergesweep.level_trips(1 << 28, 1 << 15, 1) == [
+        (1 << 27, 1 << 21, 256), (1 << 20, 1 << 15, 512)]
+    assert mergesweep.level_trips(1 << 14, 1024, 1) == \
+        mergesweep.hyper_trips(1 << 14, 1024, 1024)
+    for num_ops, tile, stages, trips in ((1, 1 << 15, 91, 14),
+                                         (3, 1 << 14, 105, 17)):
+        levels = [mergesweep.level_trips(1 << lk, tile, num_ops)
+                  for lk in range(tile.bit_length(), 29)]
+        assert sum(len(t) for t in levels) == trips
+        assert sum((2 * j_hi // j_lo).bit_length() - 1
+                   for t in levels for j_hi, j_lo, _ in t) == stages
+        for t in levels:
+            for j_hi, j_lo, cols in t:
+                assert 2 * j_hi // j_lo * cols == tile
+                assert mergesweep.MIN_COLS <= cols <= j_lo
+
+
 # ---- the engine ---------------------------------------------------------------
 
 
@@ -227,7 +258,7 @@ def jax_engine():
     return res
 
 
-def _expected_calls(N, L, tile_rows, hyper):
+def _expected_calls(N, L, tile_rows, hyper, num_ops):
     """(global_stage, hyper_stage, merge_tail) calls of one engine run."""
     tile = tile_rows * 128
     g = h = t = 0
@@ -236,7 +267,7 @@ def _expected_calls(N, L, tile_rows, hyper):
         if k > tile:
             stages = (k // tile).bit_length() - 1
             if hyper:
-                h += len(mergesweep.hyper_trips(k, tile, tile))
+                h += len(mergesweep.level_trips(k, tile, num_ops))
             else:
                 g += stages
         t += 1
@@ -269,7 +300,7 @@ def test_engine_matches_jax(jax_engine, monkeypatch, clean_overrides, hyper,
             calls[key] = 0
         _port_tiles(port_rows, num_ops)
         out = fn()
-        want = _expected_calls(N, L, port_rows, hyper)
+        want = _expected_calls(N, L, port_rows, hyper, num_ops)
         assert tuple(calls.values()) == want
         return out
 
@@ -289,7 +320,7 @@ def test_engine_matches_jax(jax_engine, monkeypatch, clean_overrides, hyper,
         seg_elems=2 * _SEG), 32768, 2 * _SEG, 3)
     for g, w in zip(got, jax_engine["net3", hyper]):
         np.testing.assert_array_equal(g.numpy(), w)
-    if port_rows == 2:
+    if port_rows == 2:       # 5 stages a trip: levels of 6-7 in 2 trips
         assert calls["merge_tail"] == 4 and (
             not hyper or calls["hyper_stage"] == 6)
 

@@ -134,6 +134,27 @@ def test_exclusive_scan_wraps_like_jax(n):
     np.testing.assert_array_equal(got.view(np.uint32), ref.astype(np.uint32))
 
 
+@pytest.mark.parametrize("capturing", [False, True])
+def test_scan_scratch_refuses_graph_capture(monkeypatch, capturing):
+    """The chained kernels' scratch (exclusive_scan, binning_pass,
+    compact_ops, expand_ops take it before they launch) raises under
+    CUDA-graph capture, whose replays would reuse the captured epoch; out
+    of capture it hands out the next epoch.  The capture query is patched,
+    since this build has no card."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    monkeypatch.setattr(kernels, "_SCAN_SCRATCH", {})
+    dev = torch.device("cpu")
+    if capturing:
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            kernels._scan_scratch(dev, 7, 16)
+        assert kernels._SCAN_SCRATCH == {}
+    else:
+        buf, epoch = kernels._scan_scratch(dev, 7, 16)
+        assert (buf.numel(), epoch) == (1025, 1)
+        assert kernels._scan_scratch(dev, 7, 16)[1] == 2
+
+
 @pytest.fixture(scope="module")
 def downsweep_case():
     """Two 128-row tiles of low-entropy codes, two rides, and each shift's
