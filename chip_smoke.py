@@ -166,7 +166,18 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      downsweep; end to end keys, pairs and argsort with the gate on and
      off; both kernels timed at both tiles on 1-3 planes beside the
      element form, their byte bounds, the pass's bound and their plain
-     versions.
+     versions;
+ 20. the console driver (`python -m gpusorting_tpu_torch`) through its
+     main() in this process, every kernel count zeroed before it and read
+     after it: info (generation "h100"), test for onesweep and
+     device_radix on PALLAS with a 2^22 large size, supertest, bench at
+     2^28 (its line carries the card), segsort at 2^22, dist over 4 gloo
+     ranks on the card at 2^24, autotune on rts and radix16 at 2^24,
+     --routing at 2^22 and --rangesweep at 2^26, each command's seconds,
+     output (the sweeps) and launches on a line; then the bench script
+     (`python -m gpusorting_tpu_torch.bench`, AUTO and --flat) in a
+     process of its own, its one line parsed; the tuning and routing rows
+     read as before and no override is left installed.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -175,8 +186,10 @@ them.  The line before the last lists the kernels; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import io
 import json
 import os
 import statistics
@@ -197,14 +210,6 @@ SEED = 2024
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
-
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def _phase18_rank(rank: int, world: int, n: int, seed: int) -> dict:
@@ -268,7 +273,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    card = _card()
+    card = timing.card_line()
+    _require(card is not None, "nvidia-smi reads no card")
     print(card, flush=True)
     info = gstt.get_device_info(dev)
     _require(info.hbm_gbps > 0,
@@ -2687,6 +2693,116 @@ def main() -> int:
     del x, ride
     free()
     emit(phase="row_form_seconds", seconds=time.perf_counter() - t19)
+
+    # ---- phase 20: the console driver, the tuner and the bench script ----
+    # Each command through `python -m gpusorting_tpu_torch`'s main() in
+    # this process (dist spawns its own ranks), its output captured and
+    # checked; the kernel counts are zeroed before the commands and read
+    # after them, per command and in all.  No command installs a row.
+    from gpusorting_tpu_torch import __main__ as cli
+    from gpusorting_tpu_torch.core import config
+
+    t20 = time.perf_counter()
+
+    def rows_now():
+        return ([config.get_tuning_parameters(info, m) for m in gstt.Mode],
+                config.get_routing_parameters(info))
+
+    rows_before = rows_now()
+    # the kernels this slice's entry points reach in this process
+    cli_fns = {"relocate": relocate.relocate,
+               "tile_histogram4": kernels.tile_histogram4,
+               "exclusive_scan": kernels.exclusive_scan,
+               "downsweep": rts.downsweep,
+               "global_histogram": kernels.global_histogram,
+               "binning_pass": radix16.binning_pass,
+               "local_stages": bitonic.local_stages,
+               "hyper_stage": mergesweep.hyper_stage}
+    all_fns = dict(cli_fns, global_stage=bitonic.global_stage,
+                   compact_ops=stitch.compact_ops,
+                   expand_ops=stitch.expand_ops,
+                   merge_tail=mergesweep.merge_tail,
+                   downsweep_rows=rts.downsweep_rows,
+                   edge_fixup=rts.edge_fixup,
+                   mask_arrivals=rx.mask_arrivals)
+    for f in all_fns.values():
+        f.launches = 0
+    cli_runs = []
+    for argv in (
+            ["info", "--json"],
+            ["test", "--algorithm", "onesweep", "--backend", "pallas",
+             "--large", "2^22"],
+            ["test", "--algorithm", "device_radix", "--backend", "pallas",
+             "--large", "2^22"],
+            ["supertest", "--sizes", "2^12", "4109"],
+            ["bench", "--n", "2^28", "--batch", "5"],
+            ["segsort", "--total", "2^22", "--maxlen", "4096"],
+            ["dist", "--ranks", "4", "--exchange", "collective",
+             "--n", "2^24"],
+            ["autotune", "--engine", "rts", "--n", "2^24"],
+            ["autotune", "--engine", "radix16", "--n", "2^24"],
+            ["autotune", "--routing", "--n", "2^22"],
+            ["autotune", "--rangesweep", "--n", "2^26"]):
+        before = {k: f.launches for k, f in all_fns.items()}
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        secs = time.perf_counter() - t0
+        out = buf.getvalue().strip()
+        _require(rc == 0, f"phase 20: {' '.join(argv)} exited {rc}: {out}")
+        if argv[0] in ("info", "bench", "autotune"):
+            out = json.loads(out)
+        if argv[0] == "info":
+            _require(out["device"]["generation"] == "h100",
+                     f"phase 20: info reports {out['device']}")
+        elif argv[0] in ("segsort", "dist"):
+            _require(out.split(": ", 1)[1].startswith("PASS"),
+                     f"phase 20: {out}")
+        elif argv[0] == "bench":
+            _require(out["keys_per_sec"] > 0 and out["card"] == card,
+                     f"phase 20: bench line {out}")
+        launched = {k: f.launches - before[k] for k, f in all_fns.items()
+                    if f.launches != before[k]}
+        cli_runs.append({"argv": argv, "seconds": secs,
+                         "launches": launched})
+        emit(phase="cli", argv=argv, seconds=secs, output=out,
+             launches=launched)
+        free()
+    cli_launches = {k: f.launches for k, f in all_fns.items()}
+    for k in cli_fns:
+        _require(cli_launches[k] > 0,
+                 f"phase 20: the commands launched no {k}")
+
+    # the bench script in a process of its own, AUTO and the flat sort
+    bench_lines = {}
+    for flag in ((), ("--flat",)):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "gpusorting_tpu_torch.bench", *flag],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        _require(res.returncode == 0, f"phase 20: the bench script "
+                 f"{' '.join(flag)} exited {res.returncode}: "
+                 f"{res.stderr[-2000:]}")
+        lines = res.stdout.strip().splitlines()
+        _require(len(lines) == 1, f"phase 20: the bench script printed "
+                 f"{len(lines)} lines")
+        line = json.loads(lines[0])
+        want_route = "xla" if flag else gstt.auto_engine(N, info=info)
+        _require(line["value"] > 0 and line["detail"]["card"] == card
+                 and line["detail"]["route"] == want_route
+                 and line["detail"]["n"] == N,
+                 f"phase 20: bench script line {line}")
+        bench_lines[" ".join(flag) or "auto"] = line
+        emit(phase="bench_script", flags=list(flag), seconds=secs,
+             line=line)
+    _require(rows_now() == rows_before and not config._TUNING_OVERRIDES
+             and not config._ROUTING_OVERRIDE,
+             "phase 20: a tuning or routing row changed")
+    emit(phase="cli_path", launches=cli_launches,
+         rows_unchanged=True, seconds=time.perf_counter() - t20)
 
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]

@@ -21,6 +21,11 @@ Quick start:
                                                # the segmented sort
     res = gstt.distributed_sort(shard)         # on every rank of an
                                                # initialised process group
+    params, sweep = gstt.autotune(engine="rts")  # a tile sweep on the card
+
+Console driver: `python -m gpusorting_tpu_torch {info,test,supertest,bench,
+segsort,dist,autotune}`; headline benchmark: `python -m
+gpusorting_tpu_torch.bench`.
 """
 
 from .core.config import (
@@ -72,6 +77,7 @@ from .segsort.splitsort import (
     split_sort_pairs,
     split_sort_pairs_wide,
 )
+from .utils.autotune import autotune, autotune_rangesweep, autotune_routing
 
 __version__ = "0.1.0"
 
@@ -97,6 +103,9 @@ __all__ = [
     "TuningParameters",
     "argsort",
     "auto_engine",
+    "autotune",
+    "autotune_rangesweep",
+    "autotune_routing",
     "distributed_sort",
     "distributed_sort_gather",
     "clear_routing_override",

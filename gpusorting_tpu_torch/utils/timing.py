@@ -15,6 +15,7 @@ raises where the device is not a CUDA card.
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
@@ -28,6 +29,23 @@ def _require_cuda(device) -> torch.device:
     if dev.type != "cuda":
         raise RuntimeError(f"timing needs a CUDA device, got {dev}")
     return dev
+
+
+def card_line() -> str | None:
+    """The first card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them, or None
+    where nvidia-smi is absent or fails.  A card may run below its
+    maximum power, and slower under load, so a measurement keeps this
+    beside it."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0] if lines else None
 
 
 def device_time_ms(fn, iters: int = 5, warmup: int = 1,

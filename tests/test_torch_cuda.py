@@ -3,8 +3,9 @@ kernel (relocate, tile_histogram4, exclusive_scan, downsweep and its row
 form downsweep_rows with edge_fixup, global_histogram, binning_pass and its digit-plane form, local_stages,
 global_stage, compact_ops, expand_ops, merge_tail, hyper_stage) against its
 plain version, their launch checks, the engines
-and public entry points through the kernels against flat torch.sort, and
-the segmented sort against the composite oracle.
+and public entry points through the kernels against flat torch.sort, the
+segmented sort against the composite oracle, and the tuner's sweeps and
+the console driver's bench line on the card.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
 file imports neither JAX nor the JAX package, so it runs on a machine with
@@ -12,6 +13,8 @@ only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -1397,3 +1400,60 @@ def test_row_form_sorts_on_card(cuda, monkeypatch):
     assert (rts.downsweep.launches - before[0],
             rts.downsweep_rows.launches - before[1],
             rts.edge_fixup.launches - before[2]) == (0, 40, 40)
+
+
+# ---- the tuner and the console driver ---------------------------------------
+
+
+@pytest.mark.parametrize("which", ["tiles", "routing", "rangesweep"])
+def test_autotune_on_card(cuda, which):
+    """Each sweep at 2^20 on the card returns a measured row; installing
+    it and clearing the overrides leaves the card's rows as they were."""
+    from gpusorting_tpu_torch.utils import autotune
+
+    info = config.get_device_info(cuda)
+    rows = ([config.get_tuning_parameters(info, m) for m in config.Mode],
+            config.get_routing_parameters(info))
+    n = 1 << 20
+    try:
+        if which == "tiles":
+            p, sweep = autotune.autotune(config.Mode.PAIRS, n=n,
+                                         tiles=(16, 32), batch=1,
+                                         install=True, engine="rts")
+            assert set(sweep) == {16, 32} and p.radix_tile_rows in sweep
+            assert config.get_tuning_parameters(info, config.Mode.PAIRS) == p
+        elif which == "routing":
+            p, sweep = autotune.autotune_routing(
+                n=n, batch=1, window_candidates=(64, 4096), install=True)
+            assert set(sweep["window_pairs"]) == {64, 4096}
+            assert config.get_routing_parameters(info) == p
+        else:
+            p, sweep = autotune.autotune_rangesweep(
+                n_max=n, batch=1, seg_candidates_keys=(1 << 18,),
+                seg_candidates_pairs=(1 << 18,), install=True)
+            assert set(sweep) == {"keys", "pairs"}
+            assert config.get_routing_parameters(info) == p
+        assert p.measured
+        assert all(v > 0 for v in _rates(sweep))
+    finally:
+        config.clear_tuning_overrides()
+        config.clear_routing_override()
+    assert ([config.get_tuning_parameters(info, m) for m in config.Mode],
+            config.get_routing_parameters(info)) == rows
+
+
+def _rates(sweep):
+    for v in sweep.values():
+        if isinstance(v, dict):
+            yield from _rates(v)
+        else:
+            yield v
+
+
+def test_cli_bench_line_parses(cuda, capsys):
+    from gpusorting_tpu_torch.__main__ import main
+
+    assert main(["bench", "--n", "2^20", "--batch", "2"]) == 0
+    res = json.loads(capsys.readouterr().out)
+    assert res["n"] == 1 << 20 and res["keys_per_sec"] > 0
+    assert res["algorithm"] == "OneSweep" and "card" in res
