@@ -164,9 +164,10 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      descending, and one DeviceRadixSort sort, held like phase 2, each call
      through 8 downsweep_rows and 8 edge_fixup launches and no element
      downsweep; end to end keys, pairs and argsort with the gate on and
-     off; both kernels timed at both tiles on 1-3 planes beside the
-     element form, their byte bounds, the pass's bound and their plain
-     versions;
+     off; both kernels timed at both tiles on 1-3 planes on uniform, E020
+     and sparse-digit keys beside their byte bounds, on uniform keys also
+     beside the element form, the pass's bound and their plain versions
+     (the parent's build beside them: probes/torch_row_form_probe.py);
  20. the console driver (`python -m gpusorting_tpu_torch`) through its
      main() in this process, every kernel count zeroed before it and read
      after it: info (generation "h100"), test for onesweep and
@@ -2453,7 +2454,6 @@ def main() -> int:
         named = rowtab[rowtab >= 0].long()
         return int(torch.bincount(named).max()) if named.numel() else 0
 
-    row_inputs = []
     for name, make in (
             ("uniform", lambda: codec.encode_biased(prng.make_test_keys(
                 N, SEED, torch.uint32, device=dev))),
@@ -2489,11 +2489,12 @@ def main() -> int:
                     rcheck("downsweep_rows", outs + [side[mask]],
                            w_outs + [w_side[mask]], what)
                     del mask
-                    fixed = rts.edge_fixup(rowtab, side, outs)
+                    fixed = rts.edge_fixup(rowtab, table, side, outs)
                     del side
-                    got = rts.edge_fixup(rowtab, w_side,
+                    got = rts.edge_fixup(rowtab, table, w_side,
                                          [o.clone() for o in w_outs])
-                    want = rts.edge_fixup_plain(rowtab, w_side, w_outs)
+                    want = rts.edge_fixup_plain(rowtab, table, w_side,
+                                                w_outs)
                     rcheck("edge_fixup", got, want, what)
                     del got, want, w_outs, w_side
                     element = rts.downsweep(ops, table, shift, rows_t)
@@ -2631,66 +2632,86 @@ def main() -> int:
             os.environ["GST_MEGACORE"] = megacore_was
     free()
 
-    # times of both kernels at the two tiles on 1, 2 and 3 planes, beside
-    # the element form on the same table, their byte bounds and their plain
-    # versions.  bound of downsweep_rows: the planes read, the outputs
-    # written (zeroed in the call) and the present side rows written;
-    # bound of edge_fixup: rowtab and the present side rows read, the rows
+    # times of both kernels at the two tiles on 1, 2 and 3 planes, on
+    # uniform, E020 and sparse_digit keys (the uniform ones beside the
+    # element form on the same table and the plain versions), with their
+    # byte bounds.  bound of downsweep_rows: the planes read, the outputs
+    # written and the present side rows written; bound of edge_fixup:
+    # rowtab and the table read, the present side rows read, the rows
     # they name read and written.  The pass's own bound is the
     # permutation's (8 bytes an element a plane); what the row form moves
-    # is the planes read, the outputs zeroed, the whole rows written, the
-    # side rows written and read back, the named rows read and written,
-    # and the tables.
-    x = codec.encode_biased(prng.make_test_keys(N, SEED, torch.uint32,
-                                                device=dev))
+    # is the planes read, the whole rows written, the named rows written
+    # as zeros, read back and written, the side rows written and read
+    # back, and the tables.
     ride = torch.arange(N, dtype=torch.int32, device=dev)
     shift = 28
     row_times = {}
-    for rows_t in row_tiles:
-        planes3 = rts.pad_tiles((x, ride, ride.clone()), rows_t)[0]
-        T_r = N // (rows_t * LANES)
-        counts = kernels.tile_histogram4(planes3[0], shift, rows_t)
-        table = kernels.exclusive_scan(counts.T.reshape(-1))
-        rowtab = rts.edge_rows(table, counts)
-        present = int((rowtab >= 0).sum())
-        named = int(torch.unique(rowtab[rowtab >= 0]).numel())
-        for n_planes in (1, 2, 3):
-            ops = planes3[:n_planes]
-            outs, side = rts.downsweep_rows(ops, table, counts, shift,
-                                            rows_t)
-            p_outs, p_side = rts.downsweep_rows_plain(ops, table, counts,
-                                                      shift, rows_t)
-            side_bytes = 512 * n_planes * present
-            rows_bytes = 8 * N * n_planes + 128 * T_r + side_bytes
-            fix_bytes = 128 * T_r + side_bytes + 1024 * n_planes * named
-            moved = (8 * N * n_planes + 512 * n_planes * (N // LANES - named)
-                     + 2 * side_bytes + 1024 * n_planes * named + 384 * T_r)
-            rec = dict(
-                tile_rows=rows_t, tiles=T_r, planes=n_planes,
-                present_entries=present, named_rows=named,
-                rows_ms=median_ms(lambda: rts.downsweep_rows(
-                    ops, table, counts, shift, rows_t)),
-                rows_plain_ms=median_ms(lambda: rts.downsweep_rows_plain(
-                    ops, table, counts, shift, rows_t), iters=3),
-                rows_bound_ms=rows_bytes / bw * 1e3,
-                fixup_ms=median_ms(lambda: rts.edge_fixup(rowtab, side,
-                                                          outs)),
-                fixup_plain_ms=median_ms(lambda: rts.edge_fixup_plain(
-                    rowtab, p_side, p_outs), iters=3),
-                fixup_bound_ms=fix_bytes / bw * 1e3,
-                element_ms=median_ms(lambda: rts.downsweep(
-                    ops, table, shift, rows_t)),
-                pass_bound_ms=8 * N * n_planes / bw * 1e3,
-                row_form_bytes=moved, row_form_bytes_ms=moved / bw * 1e3,
-                bound_by="bytes", library_ms=None,
-                library="none: no one torch call scatters by a digit table "
-                        "or ORs rows by a table")
-            row_times[rows_t, n_planes] = rec
-            emit(phase="per_kernel_row_form", n=N, **rec)
-            del outs, side, p_outs, p_side
-        del planes3, counts, table, rowtab
+    for name, make in (
+            ("uniform", lambda: codec.encode_biased(prng.make_test_keys(
+                N, SEED, torch.uint32, device=dev))),
+            ("E020", lambda: codec.encode_biased(prng.make_test_keys(
+                N, SEED, torch.uint32, gstt.EntropyPreset.E020,
+                device=dev))),
+            ("sparse_digit", sparse_codes)):
+        x = make()
+        for rows_t in row_tiles:
+            planes3 = rts.pad_tiles((x, ride, ride.clone()), rows_t)[0]
+            T_r = N // (rows_t * LANES)
+            counts = kernels.tile_histogram4(planes3[0], shift, rows_t)
+            table = kernels.exclusive_scan(counts.T.reshape(-1))
+            rowtab = rts.edge_rows(table, counts)
+            present = int((rowtab >= 0).sum())
+            named = int(torch.unique(rowtab[rowtab >= 0]).numel())
+            for n_planes in (1, 2, 3):
+                ops = planes3[:n_planes]
+                outs, side = rts.downsweep_rows(ops, table, counts, shift,
+                                                rows_t)
+                side_bytes = 512 * n_planes * present
+                rows_bytes = 8 * N * n_planes + 128 * T_r + side_bytes
+                fix_bytes = (192 * T_r + side_bytes
+                             + 1024 * n_planes * named)
+                moved = (8 * N * n_planes
+                         + 512 * n_planes * (N // LANES - named)
+                         + 2 * side_bytes + 1536 * n_planes * named
+                         + 448 * T_r)
+                rec = dict(
+                    input=name, tile_rows=rows_t, tiles=T_r,
+                    planes=n_planes, present_entries=present,
+                    named_rows=named,
+                    rows_ms=median_ms(lambda: rts.downsweep_rows(
+                        ops, table, counts, shift, rows_t)),
+                    rows_bound_ms=rows_bytes / bw * 1e3,
+                    fixup_ms=median_ms(lambda: rts.edge_fixup(
+                        rowtab, table, side, outs)),
+                    fixup_bound_ms=fix_bytes / bw * 1e3,
+                    pass_bound_ms=8 * N * n_planes / bw * 1e3,
+                    row_form_bytes=moved,
+                    row_form_bytes_ms=moved / bw * 1e3,
+                    bound_by="bytes", library_ms=None,
+                    library="none: no one torch call scatters by a digit "
+                            "table or ORs rows by a table")
+                if name == "uniform":
+                    p_outs, p_side = rts.downsweep_rows_plain(
+                        ops, table, counts, shift, rows_t)
+                    rec.update(
+                        rows_plain_ms=median_ms(
+                            lambda: rts.downsweep_rows_plain(
+                                ops, table, counts, shift, rows_t),
+                            iters=3),
+                        fixup_plain_ms=median_ms(
+                            lambda: rts.edge_fixup_plain(
+                                rowtab, table, p_side, p_outs), iters=3),
+                        element_ms=median_ms(lambda: rts.downsweep(
+                            ops, table, shift, rows_t)))
+                    row_times[rows_t, n_planes] = rec
+                    del p_outs, p_side
+                emit(phase="per_kernel_row_form", n=N, **rec)
+                del outs, side
+            del planes3, counts, table, rowtab
+            free()
+        del x
         free()
-    del x, ride
+    del ride
     free()
     emit(phase="row_form_seconds", seconds=time.perf_counter() - t19)
 
@@ -2879,7 +2900,11 @@ def main() -> int:
              rows_max_abs_err=rows_err["downsweep_rows"],
              rows_ms=row_times[tile_rows, 1]["rows_ms"],
              rows_plain_ms=row_times[tile_rows, 1]["rows_plain_ms"],
-             rows_bound_ms=row_times[tile_rows, 1]["rows_bound_ms"]),
+             rows_bound_ms=row_times[tile_rows, 1]["rows_bound_ms"],
+             rows_redesigned="every output row stored once (no memset), "
+                             "warp-multisplit ranks straight into a stage "
+                             "aligned mod 128 a plane at a time, 16-byte "
+                             "row moves"),
         new_row("global_hist", "global_histogram", "global_hist.cu",
                 "gpusorting_tpu/ops/kernels.py:62",
                 new_times["global_histogram"]),
@@ -2925,7 +2950,12 @@ def main() -> int:
          "ms": row_times[tile_rows, 1]["fixup_ms"],
          "plain_ms": row_times[tile_rows, 1]["fixup_plain_ms"],
          "bound_ms": row_times[tile_rows, 1]["fixup_bound_ms"],
-         "bound_by": "bytes", "library_ms": None, "card": card},
+         "bound_by": "bytes", "library_ms": None, "card": card,
+         "redesigned": "one warp a shared row, its partials found by a "
+                       "ballot over the table (a binary search on long "
+                       "walks) and merged in registers, no atomics",
+         "ms_128_rows": row_times[128, 1]["fixup_ms"],
+         "bound_ms_128_rows": row_times[128, 1]["fixup_bound_ms"]},
         dict(last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91",
                       "bitonic.cu"),
              redesigned="the in-tile network's register runs, in place",

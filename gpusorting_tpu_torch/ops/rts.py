@@ -20,11 +20,13 @@ Upsweep -> Scan -> Downsweep).  Codes are the biased int32 carriers of
                 Pallas kernel with parallel=True) writes every 128-lane row
                 that lies wholly inside one (tile, digit) range as a whole
                 row, and each partial row at a range's edge, lane-masked,
-                to the tile's own rows of a side buffer; `edge_rows` names
-                the output row of each partial, and `edge_fixup`
-                (`csrc/edge_fixup.cu`, replacing `_edge_fixup_kernel`) ORs
-                the side rows into those rows.  Rows at range edges are
-                shared by several ranges, which is what the fixup is for.
+                to the tile's own rows of a side buffer, every output row
+                stored once (a shared row as zeros); `edge_rows` names the
+                output row of each partial, and `edge_fixup`
+                (`csrc/edge_fixup.cu`, replacing `_edge_fixup_kernel`)
+                merges each shared row's side rows in registers and stores
+                it once.  Rows at range edges are shared by several ranges,
+                which is what the fixup is for.
 
 Given the table, tiles are independent, so no grid order is needed.  The
 TPU artifacts that remain gone in both forms: the SMEM chunking of the
@@ -50,10 +52,12 @@ MAX_PLANES = 3
 SOURCE = _nvcc.CSRC / "downsweep.cu"
 ROWS_SOURCE = _nvcc.CSRC / "downsweep_rows.cu"
 FIXUP_SOURCE = _nvcc.CSRC / "edge_fixup.cu"
-# Shared memory the row form's staged tile may take: 3 planes of 128 rows,
-# within the 227 KB an H100 block opts in to beside the scatter's own
-# ~27 KB of counters and staging.
-ROWS_STAGE_BYTES = 3 * 128 * LANES * 4
+# Dynamic shared memory the row form's block may take: the 227 KB (232,448
+# bytes) an H100 block opts in to, less 1 KB for its static arrays.
+ROWS_STAGE_BYTES = 232_448 - 1024
+# Stage rows past the tile's (csrc/downsweep_rows.cu kPadRows): each
+# digit's run starts at a slot congruent to its output cursor mod 128.
+STAGE_PAD_ROWS = 16
 
 
 def default_tile_rows(device: torch.device, pairs: bool = False) -> int:
@@ -206,6 +210,14 @@ def edge_rows(table: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo_row, hi_row]).reshape(-1).to(torch.int32)
 
 
+def rows_stage_bytes(num_ops: int, tile_rows: int) -> int:
+    """Dynamic shared memory of one `downsweep_rows` block: one plane's
+    stage, (tile_rows + STAGE_PAD_ROWS) rows of 512 bytes, and with riders
+    each element's 16-bit stage slot."""
+    stage = (tile_rows + STAGE_PAD_ROWS) * LANES * 4
+    return stage + (tile_rows * LANES * 2 if num_ops > 1 else 0)
+
+
 def side_row(t, o, d, e, num_ops: int):
     """The side-buffer row of tile t's plane-o partial of digit d, edge e."""
     return ((t * num_ops + o) * NBUCKETS + d) * 2 + e
@@ -255,7 +267,7 @@ def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
     (plane 0 the biased codes) by the digit-major (16 * T,) cursor table
     and the Upsweep's (T, 16) counts.  Returns (outs, side):
 
-      outs — the planes, zeroed, with every row that lies wholly inside one
+      outs — the planes with every row that lies wholly inside one
              (tile, digit) range written whole; every other row zero.
       side — (T * num_ops * 16 * 2, 128) int32: row `side_row(t, o, d, e)`
              holds plane o's slots of tile t's digit-d range in the row
@@ -264,9 +276,10 @@ def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
              unwritten, the plain version zero.
 
     CUDA planes launch `csrc/downsweep_rows.cu` once for all planes (or
-    raise); the staged tile, num_ops * tile_rows * 512 bytes, must fit
-    `ROWS_STAGE_BYTES` of shared memory.  CPU planes take
-    `downsweep_rows_plain`."""
+    raise); it stores every output row once, so the outputs come from
+    `torch.empty`.  A block's stage, `rows_stage_bytes(num_ops,
+    tile_rows)`, must fit `ROWS_STAGE_BYTES` of shared memory.  CPU planes
+    take `downsweep_rows_plain`."""
     kernels.check_shift(shift)
     if not 1 <= len(planes) <= MAX_PLANES:
         raise ValueError(f"downsweep_rows takes 1-{MAX_PLANES} planes, got "
@@ -295,12 +308,12 @@ def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
     if rows * LANES >= 1 << 31:
         raise ValueError(f"downsweep_rows: {rows * LANES} elements exceed "
                          f"int32")
-    stage = len(planes) * tile_rows * LANES * 4
+    stage = rows_stage_bytes(len(planes), tile_rows)
     if stage > ROWS_STAGE_BYTES:
-        raise ValueError(f"downsweep_rows: a staged tile of {len(planes)} "
+        raise ValueError(f"downsweep_rows: the stage of {len(planes)} "
                          f"planes x {tile_rows} rows takes {stage} bytes of "
                          f"shared memory, over {ROWS_STAGE_BYTES}")
-    outs = [torch.zeros_like(p) for p in planes]
+    outs = [torch.empty_like(p) for p in planes]
     side = torch.empty((num_tiles * len(planes) * NBUCKETS * 2, LANES),
                        dtype=torch.int32, device=dev)
     spare = [0] * (MAX_PLANES - len(planes))
@@ -316,10 +329,11 @@ def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
 downsweep_rows.launches = 0
 
 
-def edge_fixup_plain(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
+def edge_fixup_plain(rowtab: torch.Tensor, table: torch.Tensor,
+                     side: torch.Tensor, outs) -> list:
     """Plain version of `edge_fixup`, vectorised: the present entries are
     sorted by row and ORed in rounds by their rank within the row, so that
-    no round names one row twice."""
+    no round names one row twice.  `table` is not needed here."""
     num_ops = len(outs)
     num_tiles = rowtab.numel() // (2 * NBUCKETS)
     k = torch.nonzero(rowtab >= 0).squeeze(1)
@@ -345,23 +359,27 @@ def edge_fixup_plain(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
 def _fixup_library() -> ctypes.CDLL:
     lib = _nvcc.load(FIXUP_SOURCE)
     fn = lib.gst_edge_fixup
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def edge_fixup(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
+def edge_fixup(rowtab: torch.Tensor, table: torch.Tensor,
+               side: torch.Tensor, outs) -> list:
     """OR each present side row into its output row, in place, for each of
     the 1-3 (rows, 128) int32 planes `outs`: entry k = (e * 16 + d) * T + t
-    of the (2 * 16 * T,) int32 `rowtab` (`edge_rows`) names the row of
-    `side` row `side_row(t, o, d, e)` in plane o, or is -1 (absent).
+    of the (2 * 16 * T,) int32 `rowtab` (`edge_rows(table, counts)`) names
+    the row of `side` row `side_row(t, o, d, e)` in plane o, or is -1
+    (absent); `table` is the pass's digit-major (16 * T,) cursor scan.
     Several entries may name one row; OR commutes, so the result does not
     depend on their order.  Returns `outs`.
 
     CUDA planes launch `csrc/edge_fixup.cu` once for all planes (or
-    raise); the kernel skips an entry naming no row of `outs`.  CPU planes
-    take `edge_fixup_plain`."""
+    raise): each row that a high entry names gets one warp, which finds
+    the row's low entries in `table` and stores the merged row once; it
+    skips an entry naming no row of `outs`.  CPU planes take
+    `edge_fixup_plain`."""
     if not 1 <= len(outs) <= MAX_PLANES:
         raise ValueError(f"edge_fixup takes 1-{MAX_PLANES} planes, got "
                          f"{len(outs)}")
@@ -374,11 +392,14 @@ def edge_fixup(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
     if tuple(side.shape) != side_shape:
         raise ValueError(f"edge_fixup: side shape {tuple(side.shape)} != "
                          f"{side_shape}")
+    if tuple(table.shape) != (NBUCKETS * num_tiles,):
+        raise ValueError(f"edge_fixup: table shape {tuple(table.shape)} != "
+                         f"{(NBUCKETS * num_tiles,)}")
     rows = outs[0].shape[0]
     if outs[0].device.type == "cpu":
-        for t in (rowtab, side, *outs):
+        for t in (rowtab, table, side, *outs):
             kernels.check_int32("edge_fixup", t)
-        return edge_fixup_plain(rowtab, side, outs)
+        return edge_fixup_plain(rowtab, table, side, outs)
     dev = outs[0].device
     if dev.type != "cuda":
         raise ValueError(f"edge_fixup: unsupported device {dev}")
@@ -387,13 +408,16 @@ def edge_fixup(rowtab: torch.Tensor, side: torch.Tensor, outs) -> list:
                     ref="outs[0]")
     _nvcc.check("edge_fixup", "rowtab", rowtab, (entries,), dev,
                 ref="outs[0]", align=4)
+    _nvcc.check("edge_fixup", "table", table, (NBUCKETS * num_tiles,), dev,
+                ref="outs[0]", align=4)
     _nvcc.check("edge_fixup", "side", side, side_shape, dev, ref="outs[0]")
     if rows * LANES >= 1 << 31:
         raise ValueError(f"edge_fixup: {rows * LANES} elements exceed int32")
     spare = [0] * (MAX_PLANES - len(outs))
     _nvcc.launch("edge_fixup", _fixup_library().gst_edge_fixup,
                  *[o.data_ptr() for o in outs], *spare, side.data_ptr(),
-                 rowtab.data_ptr(), len(outs), num_tiles, rows, device=dev)
+                 rowtab.data_ptr(), table.data_ptr(), len(outs), num_tiles,
+                 rows, device=dev)
     edge_fixup.launches += 1
     return outs
 
@@ -413,7 +437,7 @@ def rts_pass(planes, shift: int, tile_rows: int,
     if not parallel:
         return downsweep(planes, table, shift, tile_rows)
     outs, side = downsweep_rows(planes, table, counts, shift, tile_rows)
-    return edge_fixup(edge_rows(table, counts), side, outs)
+    return edge_fixup(edge_rows(table, counts), table, side, outs)
 
 
 def _sort_rts(operands, tile_rows: int, parallel: bool | None = None):

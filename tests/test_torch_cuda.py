@@ -1309,6 +1309,50 @@ def _entries_per_row(rowtab):
     return int(torch.bincount(named).max()) if named.numel() else 0
 
 
+def _dirty_then_free(ops, side_rows):
+    """Fills buffers of the sizes `downsweep_rows` allocates (each output
+    plane, then the side rows) with 0x5A5A5A5A and frees them, so that the
+    wrapper's torch.empty calls get these bytes back; their addresses."""
+    bufs = [torch.full_like(p, 0x5A5A5A5A) for p in ops]
+    bufs.append(torch.full((side_rows, 128), 0x5A5A5A5A, dtype=torch.int32,
+                           device=ops[0].device))
+    ptrs = [b.data_ptr() for b in bufs]
+    del bufs
+    return ptrs
+
+
+def _check_row_form(ops, table, counts, rowtab, shift, tile_rows):
+    """downsweep_rows on dirty memory and edge_fixup (on its own side rows
+    and on the plain version's) against their plain versions and the
+    element form; one and two launches."""
+    present = (rowtab.view(2, 16, -1) >= 0).permute(2, 1, 0)   # (T, 16, 2)
+    before = (rts.downsweep_rows.launches, rts.edge_fixup.launches)
+    dirty = _dirty_then_free(ops, counts.shape[0] * len(ops) * 32)
+    outs, side = rts.downsweep_rows(ops, table, counts, shift, tile_rows)
+    torch.cuda.synchronize()
+    assert [o.data_ptr() for o in outs] == dirty[:len(ops)]
+    want_outs, want_side = rts.downsweep_rows_plain(ops, table, counts,
+                                                    shift, tile_rows)
+    for g, w in zip(outs, want_outs):
+        assert torch.equal(g, w)
+    mask = present.unsqueeze(1).expand(-1, len(ops), -1, -1).reshape(-1)
+    assert torch.equal(side[mask], want_side[mask])
+    # the kernel's own side rows (absent ones unwritten) and the plain
+    # version's, each fixed by the kernel
+    element = rts.downsweep_plain(ops, table, shift, tile_rows)
+    fixed = rts.edge_fixup(rowtab, table, side, outs)
+    got = rts.edge_fixup(rowtab, table, want_side,
+                         [o.clone() for o in want_outs])
+    torch.cuda.synchronize()
+    want = rts.edge_fixup_plain(rowtab, table, want_side,
+                                [o.clone() for o in want_outs])
+    for f, g, w, e in zip(fixed, got, want, element):
+        assert torch.equal(g, w)
+        assert torch.equal(f, e) and torch.equal(w, e)
+    assert (rts.downsweep_rows.launches, rts.edge_fixup.launches) \
+        == (before[0] + 1, before[1] + 2)
+
+
 @pytest.mark.parametrize("tile_rows", [32, 128])
 @pytest.mark.parametrize("kind", ["rand", "distinct16", "alleq", "sparse"])
 def test_row_form_kernels_match_plain(cuda, kind, tile_rows):
@@ -1321,35 +1365,35 @@ def test_row_form_kernels_match_plain(cuda, kind, tile_rows):
         counts = kernels.tile_histogram4_plain(planes[0], shift, tile_rows)
         table = kernels.exclusive_scan_plain(counts.T.reshape(-1))
         rowtab = rts.edge_rows(table, counts)
-        present = (rowtab.view(2, 16, -1) >= 0).permute(2, 1, 0)  # (T,16,2)
         if kind == "sparse":
             assert _entries_per_row(rowtab) >= 3
         for ops in (planes[:1], planes[:2], planes):
-            before = (rts.downsweep_rows.launches, rts.edge_fixup.launches)
-            outs, side = rts.downsweep_rows(ops, table, counts, shift,
-                                            tile_rows)
-            torch.cuda.synchronize()
-            want_outs, want_side = rts.downsweep_rows_plain(
-                ops, table, counts, shift, tile_rows)
-            for g, w in zip(outs, want_outs):
-                assert torch.equal(g, w)
-            mask = present.unsqueeze(1).expand(-1, len(ops), -1, -1)
-            mask = mask.reshape(-1)
-            assert torch.equal(side[mask], want_side[mask])
-            # the kernel's own side rows (absent ones unwritten) and the
-            # plain version's, each fixed by the kernel
-            element = rts.downsweep_plain(ops, table, shift, tile_rows)
-            fixed = rts.edge_fixup(rowtab, side, outs)
-            plain_in = [o.clone() for o in want_outs]
-            got = rts.edge_fixup(rowtab, want_side, plain_in)
-            torch.cuda.synchronize()
-            want = rts.edge_fixup_plain(rowtab, want_side,
-                                        [o.clone() for o in want_outs])
-            for f, g, w, e in zip(fixed, got, want, element):
-                assert torch.equal(g, w)
-                assert torch.equal(f, e) and torch.equal(w, e)
-            assert (rts.downsweep_rows.launches, rts.edge_fixup.launches) \
-                == (before[0] + 1, before[1] + 2)
+            _check_row_form(ops, table, counts, rowtab, shift, tile_rows)
+
+
+@pytest.mark.parametrize("shift", [0, 28])
+def test_row_form_walk_crosses_zero_count_ranges(cuda, shift):
+    """One output row holds 40 one-key digit-0 ranges, then digit 1's: 3
+    keys in tile 0, none in the next 38 tiles, 2 in the last; digit 2
+    elsewhere.  The fixup's walk from that row's high entry crosses 38
+    zero-count ranges, two ballot windows."""
+    tile_rows, num_tiles = 32, 40
+    n = num_tiles * tile_rows * 128
+    x = np.full(n, 0x20000002, np.uint32)
+    x[::tile_rows * 128] = 0
+    x[[5, 6, 7, n - 3, n - 2]] = 0x10000001
+    codes = codec.bias(torch.from_numpy(x)).to(cuda)
+    ride = torch.arange(n, dtype=torch.int32, device=cuda)
+    planes, _ = rts.pad_tiles((codes, ride, ride * 3), tile_rows)
+    counts = kernels.tile_histogram4_plain(planes[0], shift, tile_rows)
+    table = kernels.exclusive_scan_plain(counts.T.reshape(-1))
+    rowtab = rts.edge_rows(table, counts)
+    ranges = 16 * num_tiles
+    cur, lo = table.tolist(), rowtab.tolist()
+    zero = [k for k in range(1, ranges) if cur[k] < 128 and lo[k] < 0]
+    assert int(rowtab[ranges]) == 0 and len(zero) >= 32
+    for ops in (planes[:1], planes):
+        _check_row_form(ops, table, counts, rowtab, shift, tile_rows)
 
 
 def test_row_form_wrappers_check_on_card(cuda):
@@ -1360,16 +1404,22 @@ def test_row_form_wrappers_check_on_card(cuda):
         rts.downsweep_rows([x.float()], table, counts, 0, 128)
     with pytest.raises(ValueError, match="counts shape"):
         rts.downsweep_rows([x], table, counts[:1], 0, 128)
+    # one plane of 512 rows needs a (512 + 16)-row stage, 270,336 bytes
+    x512 = torch.zeros((512, 128), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        rts.downsweep_rows([x] * 3, table[:16], counts[:1], 0, 256)
+        rts.downsweep_rows([x512] * 3, table[:16], counts[:1], 0, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        rts.downsweep_rows([x512], table[:16], counts[:1], 0, 512)
     rowtab = torch.full((64,), -1, dtype=torch.int32, device=cuda)
     side = torch.ones((2 * 2 * 32, 128), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="side shape"):
-        rts.edge_fixup(rowtab, side, [x])
+        rts.edge_fixup(rowtab, table, side, [x])
     with pytest.raises(ValueError, match="on cpu"):
-        rts.edge_fixup(rowtab, side, [x, x.cpu()])
+        rts.edge_fixup(rowtab, table, side, [x, x.cpu()])
+    with pytest.raises(ValueError, match="table"):
+        rts.edge_fixup(rowtab, table.cpu(), side[:64], [x])
     # every entry absent: nothing is read or written
-    assert not rts.edge_fixup(rowtab, side[:64], [x])[0].any()
+    assert not rts.edge_fixup(rowtab, table, side[:64], [x])[0].any()
 
 
 def test_row_form_sorts_on_card(cuda, monkeypatch):

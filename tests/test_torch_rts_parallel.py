@@ -27,7 +27,7 @@ import gpusorting_tpu_torch as gstt
 from gpusorting_tpu.ops import radix16 as jradix16
 from gpusorting_tpu.ops import rts as jrts
 from gpusorting_tpu_torch.core import codec, config
-from gpusorting_tpu_torch.ops import rts
+from gpusorting_tpu_torch.ops import kernels, rts
 
 TILE = 128
 T = 3
@@ -200,8 +200,8 @@ def test_edge_fixup_matches_jax(cases, name, num_ops, shift):
     """JAX's fixup and the port's plain one on the same (rowtab, side, outs);
     the fixed planes are the element form's scatter."""
     c = cases[name, num_ops, shift]
-    got = rts.edge_fixup(c["rowtab"], c["side"],
-                         [o.clone() for o in c["outs"]])
+    got = rts.edge_fixup(c["rowtab"], torch.from_numpy(c["table"]),
+                         c["side"], [o.clone() for o in c["outs"]])
     element = rts.downsweep(c["planes"], torch.from_numpy(c["table"]),
                             shift, TILE)
     for g, j, e in zip(got, c["jfixed"], element):
@@ -215,6 +215,163 @@ def test_sparse_digit_input_shares_rows(cases):
     for shift in SHIFTS:
         rt = cases["sparse_digit", 1, shift]["rowtab"]
         assert int(torch.bincount(rt[rt >= 0].long()).max()) >= 3
+
+
+# ---- the index properties the kernels rely on --------------------------------
+#
+# csrc/downsweep_rows.cu stores each output row once: a row whole in one
+# range from that range's block, a shared row as zeros from the block of
+# the range that covers its slot 0.  csrc/edge_fixup.cu gives each shared
+# row one warp, keyed by that range's high entry, which walks the
+# digit-major table while the cursors stay in the row.  Checked on the
+# planes of `cases` at a 2-row tile and at TILE.
+
+
+def _index_case(cases, name, shift, tile):
+    """(cursors, ends, rowtab) of `cases`' plane 0 at `tile` rows: the
+    digit-major ranges [cursors[m], ends[m]) as int64 and `edge_rows`."""
+    plane0 = cases[name, 1, shift]["planes"][0]
+    counts = kernels.tile_histogram4(plane0, shift, tile)
+    table = kernels.exclusive_scan(counts.T.reshape(-1))
+    cur = table.long()
+    return cur, cur + counts.T.reshape(-1).long(), rts.edge_rows(table,
+                                                                 counts)
+
+
+def _shared_rows(cur):
+    """(ROWS,) mask of the output rows that no one range holds whole."""
+    slots = torch.arange(ROWS * 128)
+    owner = (torch.searchsorted(cur, slots, right=True) - 1).view(ROWS, 128)
+    return owner[:, 0] != owner[:, -1]
+
+
+def _walk(cur, m, row):
+    """The fixup warp's walk from high entry m over a row: the ranges after
+    m whose cursor lies in the row (as lists of ints)."""
+    k, met = m + 1, []
+    while k < len(cur) and cur[k] < (row + 1) * 128:
+        met.append(k)
+        k += 1
+    return met
+
+
+_INDEX_CASES = [(name, shift, tile) for name in INPUTS for shift in SHIFTS
+                for tile in (2, TILE)]
+
+
+@pytest.mark.parametrize("name,shift,tile", _INDEX_CASES)
+def test_shared_row_has_one_high_entry(cases, name, shift, tile):
+    """(a) Every output row that is not whole in one range is named by
+    exactly one high entry, whose range covers the row's slot 0."""
+    cur, end, rowtab = _index_case(cases, name, shift, tile)
+    hi = rowtab[cur.numel():].long()
+    m = torch.nonzero(hi >= 0).squeeze(1)
+    named = torch.bincount(hi[m], minlength=ROWS)
+    shared = _shared_rows(cur)
+    assert (named[shared] == 1).all()
+    slot0 = hi[m] * 128
+    assert ((cur[m] <= slot0) & (slot0 < end[m])).all()
+
+
+@pytest.mark.parametrize("name,shift,tile", _INDEX_CASES)
+def test_walk_meets_the_rows_low_entries(cases, name, shift, tile):
+    """(b) The walk from a row's high entry, over the table until a cursor
+    leaves the row, meets exactly the present low entries naming the row;
+    the other ranges it meets hold no keys."""
+    cur, end, rowtab = _index_case(cases, name, shift, tile)
+    ranges = cur.numel()
+    lo = rowtab[:ranges].tolist()
+    hi = rowtab[ranges:].tolist()
+    cur_l, empty = cur.tolist(), (end == cur).tolist()
+    by_row = {}
+    for k, r in enumerate(lo):
+        if r >= 0:
+            by_row.setdefault(r, []).append(k)
+    for m, row in enumerate(hi):
+        if row < 0:
+            continue
+        met = _walk(cur_l, m, row)
+        assert [k for k in met if lo[k] >= 0] == by_row.get(row, [])
+        assert all(empty[k] for k in met if lo[k] < 0)
+        by_row.pop(row, None)
+    assert not by_row     # every low entry names a row some walk covers
+
+
+@pytest.mark.parametrize("name,shift,tile", _INDEX_CASES)
+def test_every_row_has_one_writer(cases, name, shift, tile):
+    """(c) The rows that the high entries name (stored as zeros by the
+    downsweep, merged by the fixup) and the whole rows cover every output
+    row exactly once."""
+    cur, _, rowtab = _index_case(cases, name, shift, tile)
+    hi = rowtab[cur.numel():].long()
+    writers = torch.bincount(hi[hi >= 0], minlength=ROWS)
+    writers += (~_shared_rows(cur)).long()
+    assert (writers == 1).all()
+
+
+@pytest.mark.parametrize("name,shift,tile", _INDEX_CASES)
+def test_stage_offsets_fit(cases, name, shift, tile):
+    """(d) Each digit's run staged at the first slot after the previous
+    run's end that is congruent to its cursor mod 128 (the kernel's
+    layout) ends within (tile + STAGE_PAD_ROWS) rows, whose 16-bit slots
+    and shared memory the wrapper's check admits on 1-3 planes."""
+    cur, end, _ = _index_case(cases, name, shift, tile)
+    num_tiles = cur.numel() // 16
+    g = cur.view(16, num_tiles)
+    c = (end - cur).view(16, num_tiles)
+    p = torch.zeros(num_tiles, dtype=torch.int64)
+    for d in range(16):
+        s = p + ((g[d] - p) & 127)
+        assert ((s - g[d]) % 128 == 0).all()
+        p = torch.where(c[d] > 0, s + c[d], p)
+    stage_slots = (tile + rts.STAGE_PAD_ROWS) * 128
+    assert int(p.max()) <= stage_slots <= 1 << 16
+    for num_ops in (1, 2, 3):
+        assert rts.rows_stage_bytes(num_ops, tile) <= rts.ROWS_STAGE_BYTES
+
+
+def test_stage_check_admits_the_old_tiles():
+    """Every (planes, tile) that the old whole-tile stage admitted (planes x
+    tile x 512 bytes within 192 KiB) fits the per-plane stage."""
+    for num_ops in (1, 2, 3):
+        for tile in range(1, 384 // num_ops + 1):
+            assert rts.rows_stage_bytes(num_ops, tile) <= rts.ROWS_STAGE_BYTES
+    assert rts.rows_stage_bytes(3, 512) > rts.ROWS_STAGE_BYTES
+
+
+def _zero_run_codes(num_tiles, tile):
+    """Codes whose one output row holds 40 one-key digit-0 ranges, then
+    digit 1's ranges: 3 keys in tile 0, none in the next 38 tiles, 2 in
+    the last; digit 2 elsewhere (the digit the same at shifts 0 and 28)."""
+    n = num_tiles * tile * 128
+    x = np.full(n, 0x20000002, np.uint32)
+    x[::tile * 128] = 0
+    x[[5, 6, 7, n - 3, n - 2]] = 0x10000001
+    return x
+
+
+@pytest.mark.parametrize("shift", SHIFTS)
+def test_walk_crosses_zero_count_ranges(shift):
+    """A walk over more than 32 zero-count ranges in one row (two ballot
+    windows) still meets exactly the row's low entries, and the row form's
+    pass equals the element form's."""
+    tile, num_tiles = 2, 40
+    codes = codec.bias(torch.from_numpy(_zero_run_codes(num_tiles, tile)))
+    planes = [codes.view(-1, 128),
+              torch.arange(codes.numel(), dtype=torch.int32).view(-1, 128)]
+    counts = kernels.tile_histogram4(planes[0], shift, tile)
+    table = kernels.exclusive_scan(counts.T.reshape(-1))
+    rowtab = rts.edge_rows(table, counts)
+    ranges = table.numel()
+    lo, hi = rowtab[:ranges].tolist(), rowtab[ranges:].tolist()
+    met = _walk(table.tolist(), 0, hi[0])
+    assert hi[0] == 0 and len([k for k in met if lo[k] < 0]) >= 32
+    assert [k for k in met if lo[k] >= 0] == [k for k in range(ranges)
+                                              if lo[k] == 0]
+    got = rts.rts_pass(planes, shift, tile, parallel=True)
+    want = rts.rts_pass(planes, shift, tile, parallel=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # ---- one whole pass ------------------------------------------------------------
@@ -401,10 +558,12 @@ def test_row_form_wrappers_check():
     rowtab = torch.full((64,), -1, dtype=torch.int32)
     side = torch.ones((2 * 32, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="2 \\* 16 \\* T"):
-        rts.edge_fixup(rowtab[:-1], side, [x])
+        rts.edge_fixup(rowtab[:-1], table, side, [x])
     with pytest.raises(ValueError, match="side shape"):
-        rts.edge_fixup(rowtab, side, [x, x])
+        rts.edge_fixup(rowtab, table, side, [x, x])
+    with pytest.raises(ValueError, match="table shape"):
+        rts.edge_fixup(rowtab, table[:16], side, [x])
     with pytest.raises(TypeError):
-        rts.edge_fixup(rowtab, side.float(), [x])
+        rts.edge_fixup(rowtab, table, side.float(), [x])
     # every entry absent: nothing is read or written
-    assert not rts.edge_fixup(rowtab, side, [x])[0].any()
+    assert not rts.edge_fixup(rowtab, table, side, [x])[0].any()
