@@ -137,9 +137,10 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      its plain version at one rank's receive buffer in an 8-GPU sort of
      2^30 pairs (D = 8 blocks of 2^25), on 2 and 3 operands, under uniform
      (near 2^24), zero, full, truncated (> cap) and mixed counts, as whole
-     blocks, 4 chunk windows and single sources, bit for bit; then timed
-     beside its bound (the tail written once), its plain version and
-     masked_fill_;
+     blocks, 4 chunk windows, single sources and 5 windows whose rows
+     start at odd 4-byte offsets, bit for bit; then timed beside its bound
+     (the tail written once), its plain version and masked_fill_, and with
+     every slot masked (counts 0) beside its bound;
  17. the distributed sort at one NCCL rank in this process at n = 2^28
      through gstt.distributed_sort on both transports: u32 keys, u32 pairs,
      f32 keys with specials, all-equal pairs, max-code keys (the default
@@ -148,7 +149,11 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      stable torch.sort (prefix) with the sentinel and zero tail, and the
      masking launches asserted (the chunk count, or D); then times end to
      end beside the flat sort, and per step (sample and splitters, cell
-     counts, local sort, pack, exchange, both merge forms);
+     counts, local sort, pack, exchange, both merge forms); the masking
+     kernel timed at the path's shapes, the last chunk of the cap n + 2^20
+     call (a 2^20-slot tail) and a 2^26-slot chunk with no tail, each as
+     one call between events and as calls queued behind a spin (the card's
+     time alone);
  18. four gloo ranks on the one card (2^26 global u32 pairs, the
      collective exchange on CUDA tensors), each rank's blocks held bit for
      bit against the same group's CPU run; remote_dma's refusal recorded;
@@ -178,7 +183,12 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      output (the sweeps) and launches on a line; then the bench script
      (`python -m gpusorting_tpu_torch.bench`, AUTO and --flat) in a
      process of its own, its one line parsed; the tuning and routing rows
-     read as before and no override is left installed.
+     read as before and no override is left installed;
+ 21. the host runtime in C++ (gpusorting_tpu_torch/native/), built with
+     g++ on the card's host: available() must hold; fill_hybrid_taus at
+     2^24 bit for bit against prng.hybrid_taus_bits on the card, and
+     radix_sort / radix_sort_pairs at 2^22 against the flat stable
+     torch.sort of the same codes on the card; a CUDA tensor refused.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -2159,10 +2169,14 @@ def main() -> int:
 
     mask_err = 0
     mask_times = {}
+    # odd_windows: rows starting at every 4-byte offset mod 16, so the
+    # kernel's scalar head and end run beside its 16-byte stores
+    odd = (0, 1, cap8 // 4 + 3, cap8 // 2 + 2, cap8 - 5, cap8)
     forms = {"whole": [(0, cap8, None)],
              "chunks": [(c * cap8 // 4, (c + 1) * cap8 // 4, None)
                         for c in range(4)],
-             "sources": [(0, cap8, range(s, s + 1)) for s in range(d8)]}
+             "sources": [(0, cap8, range(s, s + 1)) for s in range(d8)],
+             "odd_windows": [(a, b, None) for a, b in zip(odd, odd[1:])]}
     for num_ops in (2, 3):
         fills = (codec.SENTINEL, -1, 0)[:num_ops]
         base = [torch.randint(-2**31, 2**31 - 1, (d8, cap8), generator=gen,
@@ -2215,6 +2229,18 @@ def main() -> int:
              operands=num_ops, counts="uniform",
              library="masked_fill_ per plane, the mask built in the call",
              **mask_times[num_ops])
+        if num_ops == 3:
+            # every slot masked: the whole window written once
+            rc0 = rc_of("zero")
+            mask_times["zero"] = dict(
+                ms=median_ms(lambda: rx.mask_arrivals(base, rc0, fills)),
+                plain_ms=median_ms(lambda: rx.mask_arrivals_plain(
+                    base, rc0, fills), iters=3),
+                bound_ms=4 * d8 * cap8 * num_ops / bw * 1e3,
+                bound_by="bytes", tail_slots=d8 * cap8)
+            emit(phase="per_kernel", kernel="mask_arrivals", d=d8,
+                 cap=cap8, operands=num_ops, counts="zero",
+                 **mask_times["zero"])
         del base
         free()
 
@@ -2345,15 +2371,35 @@ def main() -> int:
                    for _ in range(3)]
     path_rc = torch.tensor([N], dtype=torch.int32, device=dev)
     fills = (codec.SENTINEL, -1, 0)
+    # ms: one call between two events, the host's issue time included when
+    # the card is idle; device_ms: 200 calls queued behind a spin, so the
+    # events bracket the card's work alone
     path_times = dict(
         ms=median_ms(lambda: rx.mask_arrivals(path_planes, path_rc, fills,
                                               col0=3 * cw)),
+        device_ms=timing.queued_device_time_ms(
+            lambda: rx.mask_arrivals(path_planes, path_rc, fills,
+                                     col0=3 * cw), iters=200, device=dev),
         plain_ms=median_ms(lambda: rx.mask_arrivals_plain(
             path_planes, path_rc, fills, col0=3 * cw)),
         bound_ms=4 * (big - N) * 3 / bw * 1e3)
     emit(phase="per_kernel", kernel="mask_arrivals", d=1, width=cw,
          col0=3 * cw, operands=3, tail_slots=big - N, **path_times)
-    del path_planes
+    # a full chunk at the path's shape: the 2^28 ladder's chunk of 2^26
+    # slots with no tail, as 60 of the path's 65 launches find their cells;
+    # the bound is the one count read
+    full_planes = [p[:, :N // 4] for p in path_planes]
+    full_times = dict(
+        ms=median_ms(lambda: rx.mask_arrivals(full_planes, path_rc, fills)),
+        device_ms=timing.queued_device_time_ms(
+            lambda: rx.mask_arrivals(full_planes, path_rc, fills),
+            iters=200, device=dev),
+        plain_ms=median_ms(lambda: rx.mask_arrivals_plain(
+            full_planes, path_rc, fills)),
+        bound_ms=4 / bw * 1e3, bound_by="bytes")
+    emit(phase="per_kernel", kernel="mask_arrivals", d=1, width=N // 4,
+         col0=0, operands=3, tail_slots=0, **full_times)
+    del path_planes, full_planes
 
     dist_times = {}
     for what, values in (("keys", None), ("pairs", vals17)):
@@ -2825,6 +2871,53 @@ def main() -> int:
     emit(phase="cli_path", launches=cli_launches,
          rows_unchanged=True, seconds=time.perf_counter() - t20)
 
+    # ---- phase 21: the host runtime in C++ (native/) ----------------------
+    # built with g++ on this host; no numpy stand-in may pass for it
+    from gpusorting_tpu_torch import native
+
+    t21 = time.perf_counter()
+    _require(native.available(), "phase 21: the native library did not "
+             "build")
+    build21 = time.perf_counter() - t21
+    n21 = 1 << 24
+    fill = native.fill_hybrid_taus(n21, SEED + 21, 2)
+    want21 = prng.hybrid_taus_bits(n21, SEED + 21, 2, device=dev)
+    _require(torch.equal(torch.from_numpy(fill.view(np.int32)),
+                         want21.view(torch.int32).cpu()),
+             "phase 21: fill_hybrid_taus != prng.hybrid_taus_bits")
+    m21 = 1 << 22
+    keys21 = want21[:m21]
+    codes21, perm21 = torch.sort(codec.encode_biased(keys21), stable=True)
+    flat21 = codec.unbias(codes21).view(torch.int32).cpu()
+    host21 = keys21.cpu()
+    t0 = time.perf_counter()
+    got21 = native.radix_sort(host21)
+    sort_s = time.perf_counter() - t0
+    _require(torch.equal(got21.view(torch.int32), flat21),
+             "phase 21: radix_sort != flat torch.sort")
+    vals21 = torch.arange(m21, dtype=torch.int32)
+    t0 = time.perf_counter()
+    gk21, gv21 = native.radix_sort_pairs(host21, vals21)
+    pairs_s = time.perf_counter() - t0
+    _require(torch.equal(gk21.view(torch.int32), flat21)
+             and torch.equal(gv21.view(torch.int32),
+                             perm21.to(torch.int32).cpu()),
+             "phase 21: radix_sort_pairs != stable flat torch.sort")
+    _require(native.count_order_violations(gk21) == 0
+             and native.count_pair_violations(gk21, gk21) == 0,
+             "phase 21: the validators count violations in sorted keys")
+    try:
+        native.radix_sort(keys21)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    _require(refused is not None, "phase 21: a CUDA tensor was taken")
+    emit(phase="native", built=True, build_s=build21, fill_n=n21,
+         sort_n=m21, radix_sort_s=sort_s, radix_sort_pairs_s=pairs_s,
+         bit_exact=True, cuda_refused=refused,
+         seconds=time.perf_counter() - t21)
+    del want21, keys21, codes21, perm21
+
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
         return {"name": kname, "route": "cuda",
@@ -2986,9 +3079,20 @@ def main() -> int:
          "library_ms": mask_times[3]["library_ms"], "card": card,
          "operands": 3, "ms_2_operands": mask_times[2]["ms"],
          "bound_ms_2_operands": mask_times[2]["bound_ms"],
+         "redesigned": "a grid sized to the card, each row's blocks "
+                       "striding over its tail only, 16-byte streaming "
+                       "stores after a scalar head to a 128-byte line",
          "path_chunk_ms": path_times["ms"],
+         "path_chunk_device_ms": path_times["device_ms"],
          "path_chunk_plain_ms": path_times["plain_ms"],
-         "path_chunk_bound_ms": path_times["bound_ms"]}]}),
+         "path_chunk_bound_ms": path_times["bound_ms"],
+         "full_chunk_ms": full_times["ms"],
+         "full_chunk_device_ms": full_times["device_ms"],
+         "full_chunk_plain_ms": full_times["plain_ms"],
+         "full_chunk_bound_ms": full_times["bound_ms"],
+         "all_masked_ms": mask_times["zero"]["ms"],
+         "all_masked_plain_ms": mask_times["zero"]["plain_ms"],
+         "all_masked_bound_ms": mask_times["zero"]["bound_ms"]}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

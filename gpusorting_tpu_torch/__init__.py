@@ -9,7 +9,8 @@ kernel (so far: the range-exchange relocate; the reduce-then-scan
 Upsweep, scan and downsweep; radix16's global histogram and binning pass;
 the sorting network's in-tile and cross-tile stages; the segmented sort's
 compact and expand; mergesweep's merge tail and hyper stage; the
-distributed sort's receive-side masking, `csrc/`).
+distributed sort's receive-side masking, `csrc/`); the JAX package's C++
+host runtime has its twin in `native/` (built with g++ at first use).
 
 Quick start:
     import gpusorting_tpu_torch as gstt

@@ -20,18 +20,42 @@
 //
 // Bound: memory.  Only the tail is written and nothing is read but D
 // counts, so the least time is 4 bytes x tail slots over the card's memory
-// rate.  Design against that bound: the grid runs over (position tile,
-// source, operand); a tile wholly below its source's count returns at
-// once, a partial tile starts at the count, and the threads of a block
-// store consecutive int32s, so every warp store is one 128-byte segment.
+// rate.  What kept the kernel from it was the grid, not the bytes: a grid
+// over the whole window (a block per 4096 positions, source and operand)
+// scheduled 49,344 blocks at the distributed path's shape (one source, a
+// 2^26 + 2^18-slot window with a 2^20-slot tail, 3 planes) to write 768
+// blocks' worth of tail, and as many on every chunk with no tail at all.
+// Design against that:
+//   * the grid is sized to the card, not to the window: the blocks an SM
+//     the occupancy query gives times the SMs, shared evenly among the
+//     (source, operand) rows, every row at least one block and no row more
+//     than it has 16-byte stores for a block's threads;
+//   * each block reads its row's count once and computes the first masked
+//     position, first = clamp(rc[s] - col0, 0, width); the row's blocks
+//     share [first, width) evenly, striding over it together so that the
+//     stores in flight form one front a row, and a row with no tail
+//     returns after that one load;
+//   * the stores are 16 bytes (int4), neighbouring threads on neighbouring
+//     16 bytes, streaming (evict-first: the planes are far larger than the
+//     L2, so the next pass finds none of the tail there anyway);
+//   * rows may start at any 4-byte offset (odd col0 views, row strides,
+//     chunk slices), and a count puts the tail's start anywhere, so the
+//     row's first block writes a scalar head up to the first 128-byte line
+//     at or past `first` (at most 31 slots) and the scalar end past the
+//     last whole int4.  Then every warp's 512 bytes are 4 whole lines: with
+//     the head only up to a 16-byte boundary each warp's stores straddled
+//     5 lines, and D = 8 tails of about 2^24 slots took 0.709 ms against
+//     0.530 when the counts sat on lines (probes/torch_mask_probe.py, H100).
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 namespace {
 
 constexpr int kMaxOps = 4;
 constexpr int kThreads = 256;
-constexpr int kTile = 4096;  // positions per block
 
 struct MaskPlanes {
   int* ptr[kMaxOps];
@@ -44,11 +68,10 @@ mask_tail(MaskPlanes p, const int* __restrict__ rc, int src0, long long width,
           long long col0) {
   const int s = src0 + blockIdx.y;
   const int o = blockIdx.z;
-  const long long t0 = (long long)blockIdx.x * kTile;
-  const long long t1 = min(t0 + kTile, width);
   // first masked index of the row: positions col0 + j >= rc[s]
-  const long long first = (long long)__ldg(rc + s) - col0;
-  if (first >= t1) return;  // the whole tile is valid
+  const long long first =
+      min(max((long long)__ldg(rc + s) - col0, 0LL), width);
+  if (first == width) return;  // no tail in this row
   // select by constant indices: a dynamic index into the parameter struct
   // would copy it to the stack
   int* base = p.ptr[0];
@@ -63,9 +86,47 @@ mask_tail(MaskPlanes p, const int* __restrict__ rc, int src0, long long width,
     }
   }
   int* row = base + (long long)s * stride;
-  for (long long j = max(first, t0) + threadIdx.x; j < t1; j += kThreads) {
-    row[j] = fill;
+  // [first, v0) scalars up to a 128-byte line, [v0, v1) whole int4s,
+  // [v1, width) scalars
+  const long long mis =
+      (long long)((reinterpret_cast<uintptr_t>(row + first) >> 2) & 31);
+  const long long v0 = min(first + ((32 - mis) & 31), width);
+  const long long nvec = (width - v0) >> 2;
+  const long long v1 = v0 + 4 * nvec;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < v0 - first) row[first + threadIdx.x] = fill;
+    if (threadIdx.x < width - v1) row[v1 + threadIdx.x] = fill;
   }
+  // the row's blocks stride over its int4s together, so the stores in
+  // flight at any time form one contiguous front a row
+  int4* vrow = reinterpret_cast<int4*>(row + v0);
+  const int4 f4 = make_int4(fill, fill, fill, fill);
+  const long long step = (long long)gridDim.x * kThreads;
+  for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x; k < nvec;
+       k += step) {
+    __stcs(&vrow[k], f4);
+  }
+}
+
+// Blocks of mask_tail the card holds at once (SMs x blocks an SM), queried
+// once per device.
+int card_blocks() {
+  constexpr int kMaxDevices = 64;
+  static int blocks[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 0;
+  if (dev < kMaxDevices && blocks[dev] > 0) return blocks[dev];
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mask_tail,
+                                                    kThreads, 0) !=
+          cudaSuccess) {
+    return 0;
+  }
+  const int total = sms * per_sm;
+  if (dev < kMaxDevices) blocks[dev] = total;
+  return total;
 }
 
 }  // namespace
@@ -81,14 +142,22 @@ extern "C" int gst_mask_arrivals(void* p0, void* p1, void* p2, void* p3,
       width < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long tiles = (width + kTile - 1) / kTile;
-  if (tiles > 0x7FFFFFFFLL) return (int)cudaErrorInvalidConfiguration;
+  const int total = card_blocks();
+  if (total < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return (int)(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const long long rows = (long long)nsrc * num_ops;
+  // a block's threads store one int4 each a round: no row needs more
+  // blocks than it has rounds
+  const long long most = (width + 4LL * kThreads - 1) / (4LL * kThreads);
+  const long long per_row = std::max(1LL, std::min(total / rows, most));
   MaskPlanes planes = {
       {static_cast<int*>(p0), static_cast<int*>(p1), static_cast<int*>(p2),
        static_cast<int*>(p3)},
       {s0, s1, s2, s3},
       {f0, f1, f2, f3}};
-  const dim3 grid((unsigned)tiles, (unsigned)nsrc, (unsigned)num_ops);
+  const dim3 grid((unsigned)per_row, (unsigned)nsrc, (unsigned)num_ops);
   mask_tail<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       planes, static_cast<const int*>(rc), src0, width, col0);
   return (int)cudaGetLastError();

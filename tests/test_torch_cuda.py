@@ -1213,6 +1213,64 @@ def test_mask_arrivals_kernel_matches_plain(cuda, d, cap, num_ops):
                 assert torch.equal(g_.cpu(), w), (layout, form)
 
 
+@pytest.mark.parametrize("width", [1, 3, 4095, 4097, (1 << 20) + 5])
+@pytest.mark.parametrize("num_ops", [1, 2, 3, 4])
+def test_mask_arrivals_tails_at_every_alignment(cuda, width, num_ops):
+    """The kernel's scalar head, 16-byte body and scalar end: rows starting
+    at every 4-byte offset mod 16 (an odd row pitch and a lead of 0-3
+    int32s), col0 at every offset mod 4, counts at 0, below the window,
+    inside the row, at its last slot, at its end and above the cell, on all
+    8 sources, each single source and a middle range; one launch a call,
+    bit for bit against the plain version on the same card tensors."""
+    d = 8
+    g = torch.Generator(device=cuda).manual_seed(width * 8 + num_ops)
+    fills = (codec.SENTINEL, -1, 0, 7)[:num_ops]
+    pitch = width + 7
+    sources = [None, range(3, 6)] + [range(s, s + 1) for s in range(d)]
+    for lead in range(4):
+        base = [torch.randint(-2**31, 2**31 - 1, (d * pitch + 4,),
+                              generator=g, device=cuda, dtype=torch.int32)
+                for _ in range(num_ops)]
+
+        def rows(bufs):
+            return [b[lead:lead + d * pitch].view(d, pitch)[:, :width]
+                    for b in bufs]
+
+        for col0 in (0, 1001, 1002, 1003):
+            rc = torch.tensor([0, max(col0 - 1, 0), col0 + width // 3,
+                               col0 + width - 1, col0 + width,
+                               col0 + width + 5, 2**31 - 1, col0 + 1],
+                              dtype=torch.int32, device=cuda)
+            for src in sources:
+                got = [b.clone() for b in base]
+                want = [b.clone() for b in base]
+                before = rx.mask_arrivals.launches
+                rx.mask_arrivals(rows(got), rc, fills, col0=col0,
+                                 sources=src)
+                assert rx.mask_arrivals.launches - before == 1
+                rx.mask_arrivals_plain(rows(want), rc, fills, col0=col0,
+                                       sources=src)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (lead, col0, src)
+
+
+def test_native_refuses_card_tensors(cuda):
+    """The host runtime copies nothing off the card: a CUDA tensor raises,
+    in any argument."""
+    from gpusorting_tpu_torch import native
+
+    x = torch.zeros(16, dtype=torch.int32, device=cuda)
+    host = torch.zeros(16, dtype=torch.int32)
+    for call in (lambda: native.radix_sort(x),
+                 lambda: native.radix_sort_pairs(host, x),
+                 lambda: native.count_order_violations(x),
+                 lambda: native.count_pair_violations(host, x),
+                 lambda: native.count_segmented_violations(
+                     host, torch.zeros(1, dtype=torch.int32, device=cuda))):
+        with pytest.raises(ValueError, match="host"):
+            call()
+
+
 def test_mask_arrivals_checks_on_card(cuda):
     x = torch.zeros(4, 256, dtype=torch.int32, device=cuda)
     rc = torch.zeros(4, dtype=torch.int32, device=cuda)

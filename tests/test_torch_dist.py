@@ -27,7 +27,7 @@ import torch.distributed as dist
 from gpusorting_tpu_torch.core import prng
 from gpusorting_tpu_torch.core.config import EntropyPreset
 from gpusorting_tpu_torch.parallel import dist_sort, remote_exchange
-from gpusorting_tpu_torch.parallel.launch import run_ranks
+from gpusorting_tpu_torch.parallel.launch import run_ranks, step
 
 D = 8
 SPAWN_TIMEOUT = 240.0
@@ -137,6 +137,7 @@ def _run_cases(rank, world, cases):
     gather where asked), then the calls that must raise."""
     out = {}
     for name, (keys, values, kw, gather, _) in cases.items():
+        step(f"case {name}")
         k = _shard(keys, rank, world)
         v = None if values is None else _shard(values, rank, world)
         res = dist_sort.distributed_sort(k, v, **kw)
@@ -152,6 +153,7 @@ def _run_cases(rank, world, cases):
                 rec["gather_values"] = got_v.numpy()
             rec.update(gather=got.numpy(), gather_overflow=ovf)
         out[name] = rec
+    step("the calls that must raise")
     out["errors"] = {
         "empty": _error(lambda: dist_sort.distributed_sort(
             torch.zeros(0, dtype=torch.uint32))),
@@ -163,6 +165,7 @@ def _run_cases(rank, world, cases):
             torch.zeros(16, dtype=torch.uint32),
             torch.zeros(16, dtype=torch.int64))),
     }
+    step("make_mesh(4)")
     mesh = dist_sort.make_mesh(4)      # every rank creates the group
     out["mesh4"] = (dist.get_world_size(mesh), dist.get_rank(mesh)) \
         if rank < 4 else None
