@@ -12,17 +12,22 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      against its plain PyTorch version (method="gather") on the card, for 1
      and 4 planes, at n = 2^28 with L = 2^21 (K = 128), on uniform, E020
      and all-equal keys;
-  2. the main path at n = 2^28 through the public entry points under
-     Backend.AUTO: sort on uint32 / int32 / float32 keys (the floats with
-     NaN, +-0 and +-inf injected), sort_pairs with a uint32 and with an
-     int64 payload, and argsort, each ascending and descending.  Every
-     output is held bit for bit against flat torch.sort(stable=True) over
-     the same codes, pairs also against the payload == key stability
-     oracle; the relocate launch count shows each went through the kernel;
-  3. times with CUDA events (utils/timing.py): end to end for the AUTO
-     (rangesweep) route and the flat torch.sort route, per phase of the
-     engine, and the relocate kernel beside its bound and its plain version,
-     for keys, pairs and argsort;
+  2. the range-exchange path at n = 2^28 through the public entry points
+     under Backend.AUTO, the route forced by a routing override (the
+     card's measured row sends 2^28 to the flat sort): sort on uint32 /
+     int32 / float32 keys (the floats with NaN, +-0 and +-inf injected),
+     sort_pairs with a uint32 and with an int64 payload, and argsort, each
+     ascending and descending.  Every output is held bit for bit against
+     flat torch.sort(stable=True) over the same codes, pairs also against
+     the payload == key stability oracle; the relocate launch count shows
+     each went through the kernel;
+  3. AUTO with no override at 2^28 for keys, pairs, 64-bit pairs and
+     argsort: the route auto_engine picks on the installed row, bit for bit
+     against the flat sort, relocate launched only on a rangesweep route;
+     then times with CUDA events (utils/timing.py): end to end for AUTO on
+     the installed row, AUTO forced onto rangesweep and the flat
+     torch.sort route, per phase of the engine, and the relocate kernel
+     beside its bound and its plain version, for keys, pairs and argsort;
   4. the radix kernels against their plain versions at n = 2^28, on
      uniform, E020 and all-equal keys, at both engines' shapes: the card's
      tuning tile for device_radix (exclusive_scan on the pass's 16*T
@@ -91,9 +96,13 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      with NaN and +-0; bits_to_sort 4/8/16/24 at 2^10); (b) fixed lengths
      32, 4096, 2^18; (c) a length-class split at 2^26 (1 compact and 1
      expand a call); (d) a multi-class plan at 2^26 (3 and 3); (e)
-     strategy="packed", a SplitSorter and a make_segsort_fn;
- 12. times: each layout of 11(a)-(d) end to end with and without a
-     prebuilt plan beside the oracle; compact and expand at 2^28 beside
+     strategy="packed", a SplitSorter and a make_segsort_fn.  (a), (c)
+     and (d) run on the card's row (which sends them to the composite)
+     and, where that routes them elsewhere, again under the segmented
+     fields of the JAX package's row forced by a routing override, which
+     reaches the window routes, the split and the multi-class plan;
+ 12. times: each layout of 11(a)-(d), on each row it ran on, end to end
+     with and without a prebuilt plan beside the oracle; compact and expand at 2^28 beside
      their bounds, plain versions and the torch calls computing the same
      function; and each stitch call of layouts (c) and (d) at its shape,
      each held bit for bit against its plain version on the same operands;
@@ -162,8 +171,8 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      present) and edge_fixup against their plain versions, bit for bit, on
      uniform, E020, all-equal and a sparse-digit input (three or more side
      entries name one row), 1, 2 and 3 planes, shifts 0 and 28, at the
-     "h100" tile and at 128 rows, the fixed planes also against the
-     element-form downsweep; then, with GST_MEGACORE=1 set for the phase
+     "h100" keys tile and at one other (128 rows, or 32 where the tile
+     is 128), the fixed planes also against the element-form downsweep; then, with GST_MEGACORE=1 set for the phase
      and restored after it, device_radix sort on uint32 / int32 / float32
      keys, sort_pairs, sort_pairs_wide and argsort, each ascending and
      descending, and one DeviceRadixSort sort, held like phase 2, each call
@@ -374,6 +383,25 @@ def main() -> int:
         return k
 
     orders = (gstt.Order.ASCENDING, gstt.Order.DESCENDING)
+    # The card's row sends AUTO's 2^28 sorts to the flat sort in every mode
+    # (core/config.py, measured); the range-exchange route and its relocate
+    # kernel are driven through the same entry points with the route
+    # forced by a routing override, from 2^28 up in every mode.
+    installed_row = gstt.get_routing_parameters(info)
+    rs_forced = dataclasses.replace(
+        installed_row, rangesweep_min=N, rangesweep_min_pairs=N,
+        rangesweep_min_pairs_wide=N, rangesweep_min_index=N)
+
+    def forced(fn):
+        def run(*a):
+            gstt.set_routing_override(rs_forced)
+            try:
+                return fn(*a)
+            finally:
+                gstt.clear_routing_override()
+        return run
+
+    gstt.set_routing_override(rs_forced)
     runs = []
     relocate.relocate.launches = 0
     for kname, make, expect in (
@@ -436,40 +464,81 @@ def main() -> int:
     del keys, perm
     free()
     main_path_launches = relocate.relocate.launches
+    gstt.clear_routing_override()
     _require(main_path_launches > 0, "the main path never launched relocate")
     emit(phase="main_path", n=N, launches=main_path_launches,
          runs=[{"call": c, "order": o, "relocate_launches": d}
                for c, o, d in runs], bit_exact=True)
 
     # ---- phase 3: times --------------------------------------------------
+    # AUTO under the installed row first: its route is auto_engine's for the
+    # row in each mode, bit-exact with the flat sort, relocate launched only
+    # where that route is rangesweep; then AUTO timed with that route, with
+    # the forced rangesweep route and with the flat sort
     bw = info.hbm_gbps * 1e9
     batch = 5
     payload = torch.arange(N, dtype=torch.int32, device=dev)
+    lo64 = torch.arange(N, dtype=torch.int32, device=dev)
+    hi64 = lo64 ^ 0x5A5A5A5A
     e2e = {}
-    for what, auto_fn, flat_fn in (
+    auto_runs = []
+    for what, auto_fn, flat_fn, kw in (
             ("keys", lambda k: gstt.sort(k),
-             lambda k: gstt.sort(k, backend=gstt.Backend.XLA)),
+             lambda k: gstt.sort(k, backend=gstt.Backend.XLA), {}),
             ("pairs", lambda k: gstt.sort_pairs(k, payload),
              lambda k: gstt.sort_pairs(k, payload,
-                                       backend=gstt.Backend.XLA)),
+                                       backend=gstt.Backend.XLA),
+             {"mode": gstt.Mode.PAIRS}),
+            ("pairs_wide", lambda k: gstt.sort_pairs_wide(k, lo64, hi64),
+             lambda k: gstt.sort_pairs_wide(k, lo64, hi64,
+                                            backend=gstt.Backend.XLA),
+             {"mode": gstt.Mode.PAIRS, "payload_bits": 64}),
             ("argsort", lambda k: gstt.argsort(k),
-             lambda k: gstt.argsort(k, backend=gstt.Backend.XLA))):
+             lambda k: gstt.argsort(k, backend=gstt.Backend.XLA),
+             {"mode": gstt.Mode.PAIRS, "index_payload": True})):
+        route = gstt.auto_engine(N, info=info, **kw)
+        keys = prng.make_test_keys(N, SEED + 9, torch.uint32, device=dev)
+        before = relocate.relocate.launches
+        got = auto_fn(keys)
+        torch.cuda.synchronize()
+        reloc = relocate.relocate.launches - before
+        want = flat_fn(keys)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        _require(all(g.dtype == w.dtype and torch.equal(bits(g), bits(w))
+                     for g, w in zip(got, want)),
+                 f"AUTO {what} on the installed row ({route}) != the flat "
+                 "sort")
+        _require((reloc > 0) == (route == "rangesweep"),
+                 f"AUTO {what}: route {route}, {reloc} relocate launches")
+        auto_runs.append({"what": what, "route": route,
+                          "relocate_launches": reloc})
+        del keys, got, want
+        free()
         res = {}
-        for route, fn in (("auto_rangesweep", auto_fn),
+        for rname, fn in (("auto_installed", auto_fn),
+                          ("auto_rangesweep", forced(auto_fn)),
                           ("flat_torch_sort", flat_fn),
-                          ("auto_rangesweep_2", auto_fn),
+                          ("auto_installed_2", auto_fn),
+                          ("auto_rangesweep_2", forced(auto_fn)),
                           ("flat_torch_sort_2", flat_fn)):
             r = timing.batch_timing(fn, N, batch=batch, seed=SEED,
                                     device=dev)
-            res[route] = r["seconds_per_sort"] * 1e3
-            emit(phase="end_to_end", what=what, route=route, n=N,
+            res[rname] = r["seconds_per_sort"] * 1e3
+            emit(phase="end_to_end", what=what,
+                 route=rname.replace("installed", route), n=N,
                  batch=batch, ms=r["seconds_per_sort"] * 1e3,
                  spread_ms=[r["spread_min_s"] * 1e3,
                             r["spread_max_s"] * 1e3],
                  keys_per_sec=r["keys_per_sec"])
             free()
         e2e[what] = res
-    del payload
+    emit(phase="auto_installed_row", n=N, runs=auto_runs, bit_exact=True,
+         row={k: getattr(installed_row, k) for k in (
+             "rangesweep_min", "rangesweep_min_pairs",
+             "rangesweep_min_pairs_wide", "rangesweep_min_index",
+             "measured")})
+    del payload, lo64, hi64
     free()
 
     relocate_ms = relocate_plain_ms = relocate_bound_ms = None
@@ -1361,15 +1430,23 @@ def main() -> int:
         if plan.fixed_length is not None and plan.fixed_length > 1:
             return "fixed"
         wp = plan.window_plan(bits_to_sort, has_payload) or {}
-        for r in ("split", "classes"):
-            if r in wp:
-                return r
+
+        def mode(ml, sid_bits):
+            return splitsort._pick_window_mode(ml, sid_bits, bits_to_sort,
+                                               has_payload, plan.info)
+
+        # as splitsort._dispatch_random_lengths decides: the split only
+        # where its bulk has a window mode (or needs none)
+        sp = wp.get("split")
+        if sp is not None and (sp["ml"] <= 1
+                               or mode(sp["ml"], sp["sid_bits"]) is not None):
+            return "split"
+        if "classes" in wp:
+            return "classes"
         if "ml" in wp:
-            mode = splitsort._pick_window_mode(wp["ml"], wp["sid_bits"],
-                                               bits_to_sort, has_payload,
-                                               plan.info)
-            if mode is not None:
-                return f"window_{mode}"
+            m = mode(wp["ml"], wp["sid_bits"])
+            if m is not None:
+                return f"window_{m}"
         return "composite"
 
     def seg_call(label, fn, want_stitch):
@@ -1448,18 +1525,42 @@ def main() -> int:
         small[k] -= int(ends[k]) - rem
         return rng.permutation(np.concatenate([big, small]))
 
-    for f in stitch_fns:
-        f.launches = 0
-    seg_runs = []
-    timing_cases = []     # (layout, offs, S, total, keys, vals) per layout
-    for i, ml in enumerate(range(2, 20, 2)):
-        offs, S = prng.make_random_segments(tot_a, 1 << ml, SEED + 30 + i,
-                                            device=dev)
-        keys, vals = prng.make_test_pairs(tot_a, SEED + 40 + i, torch.uint32,
-                                          torch.uint32,
-                                          gstt.EntropyPreset.E033, device=dev)
-        route = route_of(gstt.make_segsort_plan(offs, tot_a, S))
-        label = f"a_max2^{ml}"
+    # The card's row sends these layouts where its sweeps timed them
+    # fastest; the window, split and multi-class routes (the last two
+    # launch compact and expand) are also driven, under the segmented
+    # fields of the JAX package's row (the dataclass defaults) forced by a
+    # routing override, wherever that gives another route.
+    seg_defaults = gstt.RoutingParameters()
+    seg_force = dataclasses.replace(installed_row, **{
+        f: getattr(seg_defaults, f) for f in (
+            "window_max_keys", "window_max_fused", "window_max_pairs",
+            "segsort_bulk_max", "segsort_padded_max",
+            "segsort_extract_max_frac")})
+
+    def rows_for(offs, total, S):
+        """[(tag, override or None, route)]: the installed row, and the
+        forced fields where they route this layout elsewhere."""
+        out = [("installed", None,
+                route_of(gstt.make_segsort_plan(offs, total, S)))]
+        gstt.set_routing_override(seg_force)
+        try:
+            forced_route = route_of(gstt.make_segsort_plan(offs, total, S))
+        finally:
+            gstt.clear_routing_override()
+        if forced_route != out[0][2]:
+            out.append(("forced", seg_force, forced_route))
+        return out
+
+    def under(rrow, fn):
+        if rrow is not None:
+            gstt.set_routing_override(rrow)
+        try:
+            return fn()
+        finally:
+            gstt.clear_routing_override()
+
+    def layout_a(i, ml, offs, S, keys, vals, tag, rrow, route):
+        label = f"a_max2^{ml}" + ("" if rrow is None else f"_{tag}")
         d = check_pairs(f"{label} pairs_u32", offs, S, tot_a, keys, vals)
         check_wide(f"{label} pairs_f64_wide", offs, S, tot_a, keys)
         ikeys = prng.make_test_keys(tot_a, SEED + 50 + i, torch.int32,
@@ -1475,9 +1576,51 @@ def main() -> int:
                 check_pairs(f"{label} bits_to_sort={b}", offs, S, tot_a, mk,
                             mk.clone(), bits_to_sort=b)
         seg_runs.append({"layout": label, "segments": S, "route": route,
-                         "stitch_launches_pairs": d})
-        timing_cases.append((label, route, offs, S, tot_a, keys, vals))
-        del ikeys, fkeys
+                         "row": tag, "stitch_launches_pairs": d})
+        timing_cases.append((label, route, rrow, offs, S, tot_a, keys,
+                             vals))
+
+    def layout_cd(label, want, calls, offs, S, total, keys, vals, share,
+                  tag, rrow, route):
+        stitch = (calls, calls) if route == want else None
+        plan = gstt.make_segsort_plan(offs, total, S)
+        if route == want:
+            wp = plan.window_plan(32, True)
+            _require(want in wp, f"{label}: plan {sorted(wp)} lacks {want!r}")
+            if want == "classes":
+                cp = wp["classes"]
+                _require([c["B"] for c in cp["padded"]] == [16384]
+                         and cp["tail"] is not None,
+                         f"{label}: padded {[c['B'] for c in cp['padded']]}, "
+                         f"tail {cp['tail'] is not None}")
+        label = label + ("" if rrow is None else f"_{tag}")
+        d = check_pairs(f"{label} pairs_u32", offs, S, total, keys, vals,
+                        stitch)
+        check_pairs(f"{label} pairs_u32 plan", offs, S, total, keys, vals,
+                    stitch, plan=plan)
+        check_keys(f"{label} keys_u32", offs, S, total, keys, stitch)
+        seg_runs.append({"layout": label, "segments": S, "total": total,
+                         "route": route, "row": tag,
+                         "share_at_or_below": share,
+                         "stitch_launches_per_call": list(d)})
+        timing_cases.append((label, route, rrow, offs, S, total, keys,
+                             vals))
+
+    for f in stitch_fns:
+        f.launches = 0
+    seg_runs = []
+    # (layout, route, override, offs, S, total, keys, vals) per layout
+    timing_cases = []
+    for i, ml in enumerate(range(2, 20, 2)):
+        offs, S = prng.make_random_segments(tot_a, 1 << ml, SEED + 30 + i,
+                                            device=dev)
+        keys, vals = prng.make_test_pairs(tot_a, SEED + 40 + i, torch.uint32,
+                                          torch.uint32,
+                                          gstt.EntropyPreset.E033, device=dev)
+        for tag, rrow, route in rows_for(offs, tot_a, S):
+            under(rrow, lambda: layout_a(i, ml, offs, S, keys, vals, tag,
+                                         rrow, route))
+        del keys, vals
     for seg_len in (32, 4096, 1 << 18):
         offs, S = prng.make_fixed_segments(tot_a, seg_len, device=dev)
         keys, vals = prng.make_test_pairs(tot_a, SEED + 80 + seg_len,
@@ -1489,38 +1632,28 @@ def main() -> int:
         check_pairs(f"{label} pairs_u32", offs, S, tot_a, keys, vals, (0, 0))
         check_keys(f"{label} keys_u32", offs, S, tot_a, keys, (0, 0))
         seg_runs.append({"layout": label, "segments": S, "route": route})
-        timing_cases.append((label, route, offs, S, tot_a, keys, vals))
+        timing_cases.append((label, route, None, offs, S, tot_a, keys,
+                             vals))
     for label, longs, small_max, want, calls in (
             ("c_split", [(14, 1 << 18, 1 << 19)], 64, "split", 1),
             ("d_classes", [(1100, 8193, 16384), (72, 1 << 18, 1 << 18)], 32,
              "classes", 3)):
         offs, S, total = offsets_of(layout_lens(tot_c, longs, small_max,
                                                 SEED + calls))
-        plan = gstt.make_segsort_plan(offs, total, S)
-        wp = plan.window_plan(32, True)
-        _require(want in wp, f"{label}: plan {sorted(wp)} lacks {want!r}")
-        if want == "classes":
-            cp = wp["classes"]
-            _require([c["B"] for c in cp["padded"]] == [16384]
-                     and cp["tail"] is not None,
-                     f"{label}: padded {[c['B'] for c in cp['padded']]}, "
-                     f"tail {cp['tail'] is not None}")
         keys, vals = prng.make_test_pairs(total, SEED + 90 + calls,
                                           torch.uint32, torch.uint32,
                                           gstt.EntropyPreset.E033, device=dev)
         starts, lens = host_starts(offs, total)
         share = {str(b): float(lens[lens <= b].sum() / total)
                  for b in (32, 64, 16384, 131072)}
-        check_pairs(f"{label} pairs_u32", offs, S, total, keys, vals,
-                    (calls, calls))
-        check_pairs(f"{label} pairs_u32 plan", offs, S, total, keys, vals,
-                    (calls, calls), plan=plan)
-        check_keys(f"{label} keys_u32", offs, S, total, keys,
-                   (calls, calls))
-        seg_runs.append({"layout": label, "segments": S, "total": total,
-                         "route": want, "share_at_or_below": share,
-                         "stitch_launches_per_call": [calls, calls]})
-        timing_cases.append((label, want, offs, S, total, keys, vals))
+        rows_cd = rows_for(offs, total, S)
+        _require(any(r == want for _, _, r in rows_cd),
+                 f"{label}: no row routes it {want!r}: {rows_cd}")
+        for tag, rrow, route in rows_cd:
+            under(rrow, lambda: layout_cd(label, want, calls, offs, S, total,
+                                          keys, vals, share, tag, rrow,
+                                          route))
+        del keys, vals
     offs, S = prng.make_random_segments(tot_a, 32, SEED + 100, device=dev)
     keys, vals = prng.make_test_pairs(tot_a, SEED + 101, torch.uint32,
                                       torch.uint32, device=dev)
@@ -1544,18 +1677,21 @@ def main() -> int:
          bit_exact=True)
 
     # ---- phase 12: times of the segmented sort and of each stitch kernel --
-    for label, route, offs, S, total, keys, vals in timing_cases:
-        plan = gstt.make_segsort_plan(offs, total, S)
-        emit(phase="segsort_end_to_end", layout=label, route=route,
-             total=total, segments=S,
-             plan_ms=median_ms(lambda: gstt.split_sort_pairs(
-                 offs, keys, vals, S, total, plan=plan), iters=3),
-             no_plan_ms=median_ms(lambda: gstt.split_sort_pairs(
-                 offs, keys, vals, S, total), iters=3),
-             oracle_ms=median_ms(lambda: flat_sort.segmented_sort_pairs(
-                 offs, keys, vals, total), iters=3),
-             plan_build_ms=median_ms(lambda: gstt.make_segsort_plan(
-                 offs, total, S).window_plan(32, True), iters=3))
+    for label, route, rrow, offs, S, total, keys, vals in timing_cases:
+        def case():
+            plan = gstt.make_segsort_plan(offs, total, S)
+            emit(phase="segsort_end_to_end", layout=label, route=route,
+                 row="installed" if rrow is None else "forced",
+                 total=total, segments=S,
+                 plan_ms=median_ms(lambda: gstt.split_sort_pairs(
+                     offs, keys, vals, S, total, plan=plan), iters=3),
+                 no_plan_ms=median_ms(lambda: gstt.split_sort_pairs(
+                     offs, keys, vals, S, total), iters=3),
+                 oracle_ms=median_ms(lambda: flat_sort.segmented_sort_pairs(
+                     offs, keys, vals, total), iters=3),
+                 plan_build_ms=median_ms(lambda: gstt.make_segsort_plan(
+                     offs, total, S).window_plan(32, True), iters=3))
+        under(rrow, case)
     free()
 
     half = torch.rand(N, generator=gen, device=dev) < 0.5
@@ -1599,7 +1735,9 @@ def main() -> int:
     # launches of a pairs call, on its padded-row masks) and timed
     real = {"compact": stitch.compact_ops, "expand": stitch.expand_ops}
     plain = {"compact": stitch.compact_plain, "expand": stitch.expand_plain}
-    for label, route, offs, S, total, keys, vals in timing_cases[-2:]:
+    for label, route, rrow, offs, S, total, keys, vals in (
+            t for t in timing_cases
+            if t[0][:2] in ("c_", "d_") and t[1] in ("split", "classes")):
         calls = []
 
         def recorder(kname):
@@ -1611,7 +1749,8 @@ def main() -> int:
         stitch.compact_ops = recorder("compact")
         stitch.expand_ops = recorder("expand")
         try:
-            gstt.split_sort_pairs(offs, keys, vals, S, total)
+            under(rrow, lambda: gstt.split_sort_pairs(offs, keys, vals, S,
+                                                      total))
         finally:
             stitch.compact_ops, stitch.expand_ops = (real["compact"],
                                                      real["expand"])
@@ -2472,7 +2611,8 @@ def main() -> int:
     # outs); and the kernels' own chain against the element form
     t19 = time.perf_counter()
     rows_err = {"downsweep_rows": 0, "edge_fixup": 0}
-    row_tiles = (tile_rows, 128)
+    # the card's tile and one other: 128 rows, or 32 where the tile is 128
+    row_tiles = (tile_rows, 128 if tile_rows != 128 else 32)
 
     def rcheck(kname, got, want, what):
         for g, w in zip(got, want):
@@ -3047,8 +3187,9 @@ def main() -> int:
          "redesigned": "one warp a shared row, its partials found by a "
                        "ballot over the table (a binary search on long "
                        "walks) and merged in registers, no atomics",
-         "ms_128_rows": row_times[128, 1]["fixup_ms"],
-         "bound_ms_128_rows": row_times[128, 1]["fixup_bound_ms"]},
+         f"ms_{row_tiles[1]}_rows": row_times[row_tiles[1], 1]["fixup_ms"],
+         f"bound_ms_{row_tiles[1]}_rows": row_times[row_tiles[1], 1][
+             "fixup_bound_ms"]},
         dict(last_row("merge_tail", "gpusorting_tpu/ops/mergesweep.py:91",
                       "bitonic.cu"),
              redesigned="the in-tile network's register runs, in place",

@@ -238,15 +238,27 @@ class TuningParameters:
 
 
 _TUNING_TABLE = {
-    # H100: NOT MEASURED.  32 rows = 4096 keys per tile, near the
-    # reference's 3840-key DeviceRadixSort partition (SURVEY.md:103); a
-    # tile sweep on the card is to replace it.  The network's budget is
-    # the 227 KB (232448 bytes) of shared memory an H100 block may opt in
-    # to: a 2^15-key tile for one plane, 2^14 for two or three, 2^13 for
-    # four.
+    # H100 (SXM), measured on an NVIDIA H100 80GB HBM3 at 700.00 W as
+    # nvidia-smi names it: ms a 2^28 sort, the median of 3 processes (each
+    # the mean of 3 sorts after a warm-up), int32 codes.
+    # radix_tile_rows: `python -m gpusorting_tpu_torch autotune --engine
+    #   rts --n 2^28 --tiles 8 16 32 64 128 256` (probes/
+    #   torch_autotune_sweeps.py).  Keys: 128 rows 12.348 ms, runner-up 256
+    #   rows 12.390 (32 rows 12.549, spread 0.001-0.067).  Pairs: 256 rows
+    #   17.571, runner-up 16 rows 17.650 (32 rows 17.758, spread
+    #   0.026-0.103).  256 is the sweep's edge; the row form's stage
+    #   (rts.ROWS_STAGE_BYTES) holds at most 436 rows.
+    # partition_rows: the tile (the radix engines' partition; it sizes only
+    #   the sorter objects' boundary-test window).
+    # network_smem_bytes: the 227 KB (232448 bytes) an H100 block may opt
+    #   in to (a 2^15-key tile for one plane, 2^14 for two or three, 2^13
+    #   for four).  probes/torch_row_sweeps.py, `onesweep` keys + pairs at
+    #   2^28: 232448 bytes 139.133 ms, runner-up half of it 150.528, a
+    #   quarter 169.687.  The network reads the keys-only row's budget for
+    #   every mode.
     "h100": {
-        Mode.KEYS_ONLY: TuningParameters(32, 32, 232448, measured=False),
-        Mode.PAIRS: TuningParameters(32, 32, 232448, measured=False),
+        Mode.KEYS_ONLY: TuningParameters(128, 128, 232448, measured=True),
+        Mode.PAIRS: TuningParameters(256, 256, 232448, measured=True),
     },
 }
 # Every other device, the CPU included (the JAX package's generic row).
@@ -319,8 +331,9 @@ class RoutingParameters:
                                   segmented sort's two-window ladder serves
                                   in its keys-only (`keys2`), bounded-bits
                                   (`fused`) and 32-bit pairs (`stable3`)
-                                  modes; beyond it the workload splits by
-                                  length class or takes the composite.
+                                  modes (0: none); beyond it the workload
+                                  splits by length class or takes the
+                                  composite.
       segsort_bulk_max          — multi-class dispatch: largest length
                                   class the bulk window ladder sorts in
                                   place.
@@ -355,39 +368,76 @@ class RoutingParameters:
 
 
 _ROUTING_TABLE = {
-    # H100: NOT MEASURED.  2^28 is the reference benchmark's flagship size
-    # (BASELINE.md: 2^28 u32 keys), not a crossover: it sends the flagship
-    # workload through the range-exchange engine and its relocate kernel,
-    # and everything smaller to the flat sort.  The crossover against flat
-    # torch.sort is to be measured on the card and installed here; if the
-    # flat sort wins at every size the thresholds go to None.  The seg
-    # lengths keep the defaults (2^21: K=128 at 2^28, so the hierarchical
-    # cuts run).  Only the SXM card has run it; PCIe and NVL cards take
-    # the same row unmeasured.
-    # The segmented sort's window caps (window_max_*) and class bounds
-    # (segsort_*) are the dataclass defaults, NOT MEASURED on the card.
-    # Every route gives the same bits, so each field decides only which
-    # mechanism runs, and how fast: a larger window cap keeps more
-    # workloads on the in-place window sorts, whose batched row sorts slow
-    # as the window grows; the bulk and padded bounds trade sorting in
-    # place against extracting a class (a compact and an expand each way);
-    # the extraction share gates when that copying pays.
-    # mergesweep's segment length L = 2^27 is the fastest that still merges:
-    # chip_smoke.py phase 15 on an NVIDIA H100 80GB HBM3 (700 W; the run
-    # PERF.md records as mergesweep's run C) timed 2^28 keys, switch off, at
-    # L = 2^20, 2^22, 2^24, 2^26, 2^27: 108.3, 85.2, 63.3, 42.4, 31.2 ms
-    # (pairs 319.0, 259.2, 210.7, 152.8, 118.6), one merge pass fewer
-    # winning each time.  The optimum is at the sweep's edge: L = 2^28 is
-    # one segment, the flat torch.sort (15.4 ms), which runs no merge
-    # kernel, so at n <= L this variant is that sort; whether mergesweep
-    # keeps a place on this card is open (ROADMAP).  It is the one
-    # measured field of this row, so `measured` stays False.
-    "h100": RoutingParameters(rangesweep_min=1 << 28,
-                              rangesweep_min_pairs=1 << 28,
-                              rangesweep_min_pairs_wide=1 << 28,
-                              rangesweep_min_index=1 << 28,
+    # H100 (SXM), measured on an NVIDIA H100 80GB HBM3 at 700.00 W as
+    # nvidia-smi names it; every time is the median of 3 processes.  Only
+    # the SXM card has run it; PCIe and NVL cards take the same row.
+    # Every route gives the same bits: each field picks a mechanism.
+    # rangesweep_min, _pairs (and the pairs' non-power-of-two band):
+    #   `python -m gpusorting_tpu_torch autotune --rangesweep` at n = 2^28
+    #   and `--n 2^29` (probes/torch_autotune_sweeps.py): the flat sort
+    #   wins at both sizes, so AUTO never takes rangesweep.  Keys 13.992 ms
+    #   against 39.198 (L = 2^22) at 2^28, 27.176 against 79.011 at 2^29;
+    #   pairs 23.557 against 106.121, 46.648 against 213.018.
+    # rangesweep_seg_elems, _pairs: that sweep's L, 2^22 against 2^21:
+    #   keys 39.198 against 51.174 ms, pairs 106.121 against 126.515 at
+    #   2^28 (it times only these two).
+    # rangesweep_min_pairs_wide, _index: probes/torch_row_sweeps.py, the
+    #   public sort_pairs_wide / argsort forced onto rangesweep against
+    #   backend=XLA at 2^28 and 2^29 (ms summed over both sizes): the flat
+    #   sort 103.247 / 81.825 against rangesweep from 2^28 320.338 /
+    #   277.314 and from 2^29 247.943 / 212.288.
+    # rangesweep_seg_elems_pairs_wide, _index: the same probe at 2^28, L =
+    #   2^23 106.821 / 92.447 ms, runner-up 2^22 111.837 / 100.697 (2^21
+    #   131.724 / 121.125); 2^23 is the sweep's edge.
+    # mergesweep_seg_elems: L = 2^27 is the fastest that still merges:
+    #   chip_smoke.py phase 15 (the run PERF.md records as mergesweep's run
+    #   C) timed 2^28 keys, switch off, at L = 2^20, 2^22, 2^24, 2^26,
+    #   2^27: 108.3, 85.2, 63.3, 42.4, 31.2 ms (pairs 319.0, 259.2, 210.7,
+    #   152.8, 118.6), one merge pass fewer winning each time.  L = 2^28 is
+    #   one segment, the flat torch.sort (15.4 ms), which runs no merge
+    #   kernel.
+    # ffx_tile_rows: probes/torch_row_sweeps.py, the `ffx` variant keys +
+    #   pairs at 2^28 over 64-1024 rows: 256 rows 33.010 ms, runner-up 128
+    #   rows 33.105 (1024 rows 33.746).
+    # window_max_pairs, _keys, _fused: 0, so no workload takes the
+    #   two-window ladder.  probes/torch_row_sweeps.py, each cap over 0 ..
+    #   2^18 at chip_smoke.py's segmented layouts (2^22 keys in segments of
+    #   at most 2^2 .. 2^18, and 2^26 keys by length class, (c) and (d)),
+    #   ms summed over the 11 layouts: u32 pairs 59.921 at 0, runner-up
+    #   60.580 at 4 (16384: 79.843); u32 keys 56.551, runner-up 57.012 at 4
+    #   (32768: 74.337); 16-bit keys with a payload (the fused window)
+    #   79.141, runner-up 79.920 at 4 (32768: 98.053).  The tuner's own
+    #   window sweep (`autotune --routing` at 2^22) agrees: the composite
+    #   1.176-1.302 ms against the window's 2.372-2.815 at max lengths
+    #   8192-65536.
+    # segsort_bulk_max, segsort_padded_max: the same probe with the
+    #   multi-class route forced (caps 0, extraction share 1.0), u32 pairs
+    #   and keys summed: (4096, 131072) 135.474 ms, spread 7.726; the best,
+    #   (65536, 524288), 128.772 wins by less than that spread, so the
+    #   bounds stay.  They act only where the extraction share lets the
+    #   multi-class route run, which it does not on this row.
+    # segsort_extract_max_frac: 0.0, so the multi-class route never runs:
+    #   the probe at the picks above, all three modes summed, 116.601 ms at
+    #   0.0 (and 0.1, 0.25: the same routes) against 175.506 at 0.5 and
+    #   211.395 at 1.0.
+    "h100": RoutingParameters(rangesweep_min=None,
+                              rangesweep_seg_elems=1 << 22,
+                              rangesweep_min_pairs=None,
+                              rangesweep_seg_elems_pairs=1 << 22,
+                              rangesweep_min_pairs_nonpow2=None,
+                              rangesweep_min_pairs_wide=None,
+                              rangesweep_seg_elems_pairs_wide=1 << 23,
+                              rangesweep_min_index=None,
+                              rangesweep_seg_elems_index=1 << 23,
                               mergesweep_seg_elems=1 << 27,
-                              measured=False),
+                              ffx_tile_rows=256,
+                              window_max_keys=0,
+                              window_max_fused=0,
+                              window_max_pairs=0,
+                              segsort_bulk_max=4096,
+                              segsort_padded_max=131072,
+                              segsort_extract_max_frac=0.0,
+                              measured=True),
 }
 
 # Process-wide override installed by callers (tests, a future autotuner).

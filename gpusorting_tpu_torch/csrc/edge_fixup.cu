@@ -25,7 +25,7 @@
 //
 // Bound: memory.  rowtab and the table are read once (192 bytes a tile),
 // the present side rows once, and the rows they name are read and written
-// once, 512 bytes a row and plane; at the "h100" tile of 32 rows and
+// once, 512 bytes a row and plane; at a tile of 32 rows and
 // uniform keys about 2^21 entries are present at n = 2^28 (two a range,
 // about 2^20 rows named), so about 1 GiB of side rows a plane.
 //

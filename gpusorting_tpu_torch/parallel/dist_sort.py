@@ -59,7 +59,15 @@ _EXCHANGE_LIVE_COPIES = 4
 
 def make_mesh(n_devices: int | None = None):
     """The process group of the first `n_devices` ranks (all by default):
-    `dist.group.WORLD`, or a new group that every rank must create."""
+    `dist.group.WORLD`, or a new group that every rank must create.
+
+    A new group is returned to its members only once every member has
+    connected to it: `new_group` returns on a member as soon as its own
+    half of the backend's connections is made (gloo connects a full mesh),
+    and a member that then tears the group down, or leaves the default
+    group, closes the sockets a slower peer is still connecting through,
+    which fails that peer.  So the members pass one barrier on the new
+    group; the other ranks only take part in `new_group`."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs torch.distributed.init_process_"
                            "group to have run on every rank")
@@ -67,7 +75,12 @@ def make_mesh(n_devices: int | None = None):
     n = n_devices or world
     if not 1 <= n <= world:
         raise ValueError(f"n_devices={n} outside [1, {world}]")
-    return dist.group.WORLD if n == world else dist.new_group(range(n))
+    if n == world:
+        return dist.group.WORLD
+    group = dist.new_group(range(n))
+    if dist.get_rank() < n:
+        dist.barrier(group=group)
+    return group
 
 
 def _composite(codes: torch.Tensor, gidx: torch.Tensor) -> torch.Tensor:

@@ -27,9 +27,13 @@ Every wait is bounded, in two stages that the parent times apart:
               fails the call with its traceback, and one that hangs fails
               it at the deadline.
 
-The group's own timeout (the rendezvous and each collective) is the two
-stages' sum, so a rank slowed by a loaded host fails no sooner than the
-parent's deadline would fail it.  A rank reports how far it got with
+A rank whose `fn` returned leaves the group only after one barrier on
+it, so no rank closes the connections of a peer still working through
+them (a collective, or a new group being connected); the barrier, too,
+is bounded by the group's timeout.  The group's own timeout (the
+rendezvous and each collective) is the two stages' sum, so a rank
+slowed by a loaded host fails no sooner than the parent's deadline
+would fail it.  A rank reports how far it got with
 `step(what)`; each error of `run_ranks` names every rank's last step and
 when it reached it.
 """
@@ -70,12 +74,26 @@ def _rank_main(fn, rank: int, world_size: int, init: str, timeout: float,
             "gloo", init_method=init, rank=rank, world_size=world_size,
             timeout=datetime.timedelta(seconds=timeout))
         step("joined")
-        try:
-            results.put(("done", rank, True, fn(rank, world_size, *args)))
-        finally:
-            dist.destroy_process_group()
     except Exception:   # reported to the parent, which fails the call
         results.put(("done", rank, False, traceback.format_exc()))
+        return
+    try:
+        results.put(("done", rank, True, fn(rank, world_size, *args)))
+        # A rank that leaves the group closes its connections, and a peer
+        # still using one (a collective, or connecting to a new group)
+        # fails on it; so every rank waits here until all have returned,
+        # bounded by the group's timeout.
+        dist.barrier()
+    except Exception:
+        # A rank whose `fn` raised skips the barrier: the parent fails the
+        # call and stops every rank.  Its traceback (or a failed barrier's)
+        # is flushed to the parent before its connections close, so a peer
+        # that then fails on them reports after the cause.
+        results.put(("done", rank, False, traceback.format_exc()))
+        results.close()
+        results.join_thread()
+    finally:
+        dist.destroy_process_group()
 
 
 class _Rendezvous(Exception):

@@ -4,8 +4,9 @@ of shipping a guessed table.
 Port of `gpusorting_tpu/utils/autotune.py`.  The reference selects its
 TuningParameters from a static table of measured cards (Tuner.h:14-927,
 GetTuningParameters :895-927); the port's `"h100"` rows (core/config.py)
-are guesses marked `measured=False`.  These functions run the sweeps those
-rows need on the card and return `measured=True` rows:
+were measured on the card with these functions and with
+`probes/torch_row_sweeps.py`, for the fields they do not sweep.  These
+functions run the sweeps on the card and return `measured=True` rows:
 
     params, sweep = autotune(Mode.PAIRS)        # measure, pick best tile
     autotune(Mode.PAIRS, install=True)          # and make the tuner use it
@@ -37,10 +38,10 @@ from ..core import prng as _prng
 from ..core.config import Mode
 from . import timing as _timing
 
-# Radix tiles, in rows of 128 keys (1024 .. 16384 keys) around the card
-# row's 32.  Each is a whole number of the downsweep's 8-key items and of
-# the Upsweep's 4-key loads; radix16's binning pass cuts 4096-key
-# partitions of its own whatever the tile.
+# Radix tiles, in rows of 128 keys (1024 .. 16384 keys).  Each is a whole
+# number of the downsweep's 8-key items and of the Upsweep's 4-key loads;
+# radix16's binning pass cuts 4096-key partitions of its own whatever the
+# tile.
 DEFAULT_TILES = (8, 16, 32, 64, 128)
 
 

@@ -203,7 +203,7 @@ def test_tuning_rows(mode):
     h100 = dataclasses.replace(cpu, platform="cuda", generation="h100")
     hrow = gstt.get_tuning_parameters(h100, mode)
     assert (hrow.radix_tile_rows, hrow.network_smem_bytes, hrow.measured) == (
-        32, 232448, False)
+        128 if mode == gstt.Mode.KEYS_ONLY else 256, 232448, True)
     assert [hrow.network_tile_rows(k) for k in (1, 2, 3, 4)] == [
         256, 128, 128, 64]
     gstt.set_tuning_override(mode, _tuning(7))

@@ -14,6 +14,7 @@ only PyTorch:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -136,10 +137,14 @@ def test_public_auto_route_on_card(cuda):
 
 
 def test_flagship_row_routes_rangesweep(cuda):
+    """The card's measured row routes the flagship size: the flat sort
+    beat rangesweep at 2^28 and 2^29 in every mode, so AUTO takes the flat
+    route there (rangesweep runs only under an override)."""
     info = config.get_device_info(cuda)
     if info.generation != "h100":
         pytest.skip(f"no routing row for {info.device_kind}")
-    assert config.auto_engine(1 << 28, info=info) == "rangesweep"
+    assert config.get_routing_parameters(info).measured is True
+    assert config.auto_engine(1 << 28, info=info) == "xla"
     assert config.auto_engine((1 << 28) - 1, info=info) == "xla"
 
 
@@ -351,8 +356,9 @@ def test_h100_tuning_row(cuda):
     if info.generation != "h100":
         pytest.skip(f"no tuning row for {info.device_kind}")
     row = config.get_tuning_parameters(info)
-    assert row.radix_tile_rows == 32 and row.measured is False
-    assert rts.default_tile_rows(cuda) == 32
+    assert row.radix_tile_rows == 128 and row.measured is True
+    assert rts.default_tile_rows(cuda) == 128
+    assert rts.default_tile_rows(cuda, pairs=True) == 256
     assert [bitonic.network_tile_rows(cuda, k) for k in (1, 2, 3, 4)] == [
         256, 128, 128, 64]
 
@@ -783,6 +789,23 @@ def _segsort_case(lens, seed, dev):
     return offs, len(lens), total, keys
 
 
+@pytest.fixture
+def segsort_routes(cuda):
+    """The split and multi-class routes, forced: the card's row sends
+    every random-length layout to the composite (its window caps and
+    extraction share are 0), so these tests take the segmented fields of
+    the JAX package's row (the dataclass defaults) by a routing override."""
+    row = config.get_routing_parameters(config.get_device_info(cuda))
+    jax_row = config.RoutingParameters()
+    config.set_routing_override(dataclasses.replace(row, **{
+        f: getattr(jax_row, f) for f in (
+            "window_max_keys", "window_max_fused", "window_max_pairs",
+            "segsort_bulk_max", "segsort_padded_max",
+            "segsort_extract_max_frac")}))
+    yield cuda
+    config.clear_routing_override()
+
+
 def _check_segsort(offs, S, total, keys, want_plan, calls):
     vals = keys.clone()                         # the stability oracle
     plan = gstt.make_segsort_plan(offs, total, S)
@@ -800,9 +823,10 @@ def _check_segsort(offs, S, total, keys, want_plan, calls):
     assert torch.equal(sk.view(torch.int32), wk.view(torch.int32))
 
 
-def test_segsort_split_on_card(cuda):
+def test_segsort_split_on_card(segsort_routes):
     """A bimodal layout takes the length-class split: one compact and one
     expand per call, bit-exact with the composite oracle."""
+    cuda = segsort_routes
     rng = np.random.default_rng(3)
     lens = list(rng.integers(1, 33, 60_000))
     for at in (0, 20_000, 59_999):
@@ -810,11 +834,12 @@ def test_segsort_split_on_card(cuda):
     _check_segsort(*_segsort_case(lens, 3, cuda), "split", 1)
 
 
-def test_segsort_classes_on_card(cuda):
+def test_segsort_classes_on_card(segsort_routes):
     """Bulk, one padded class and a tail: the multi-class plan, three
     compacts and three expands per call.  About 55% of the elements lie in
     segments of 1-32, 18% in 8193-16384 and 27% in one of 2^18, so no bin
     bound covers 75% (no split) and 45% is extracted."""
+    cuda = segsort_routes
     rng = np.random.default_rng(4)
     lens = list(rng.integers(1, 33, 32_000))
     lens += [int(x) for x in rng.integers(8193, 16385, 14)]

@@ -1,8 +1,9 @@
 """gpusorting_tpu_torch/parallel/launch.py: the spawned ranks' two bounded
 stages (the rendezvous, retried once on a fresh store; the work, never
-retried), their results in rank order, and errors that name each rank's
-last step.  The ranks re-import this module, which imports nothing of
-JAX."""
+retried), their results in rank order, errors that name each rank's
+last step, and a teardown that closes no connection a peer still uses
+(with make_mesh's subgroups).  The ranks re-import this module, which
+imports nothing of JAX."""
 
 import time
 
@@ -10,7 +11,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from gpusorting_tpu_torch.parallel import launch
+from gpusorting_tpu_torch.parallel import dist_sort, launch
 from gpusorting_tpu_torch.parallel.launch import run_ranks, step
 
 
@@ -40,6 +41,18 @@ def _hang_on_zero(rank, world):
     step("case that hangs" if rank == 0 else "case that returns")
     if rank == 0:
         time.sleep(120)
+    return rank
+
+
+def _mesh_rounds(rank, world, rounds):
+    """`rounds` times: every rank makes the subgroup of ranks 0-3, and its
+    members tear it down at once; then return straight away."""
+    for i in range(rounds):
+        step(f"mesh round {i}")
+        group = dist_sort.make_mesh(4)
+        if rank < 4:
+            dist.destroy_process_group(group)
+        del group       # the last reference: its connections close now
     return rank
 
 
@@ -105,6 +118,15 @@ def test_work_failure_is_not_retried(monkeypatch):
     with pytest.raises(RuntimeError, match="rank 1 failed"):
         run_ranks(_fail_on_one, 2, timeout=120.0)
     assert calls == [1]
+
+
+def test_subgroup_made_and_torn_down_at_once():
+    """A member that returns from make_mesh while a peer is still
+    connecting to the subgroup, then tears it down (or leaves the default
+    group), closes the peer's half-made connection: make_mesh waits for
+    every member, and a rank leaves the default group only once every
+    rank's function has returned."""
+    assert run_ranks(_mesh_rounds, 8, 30, timeout=120.0) == list(range(8))
 
 
 def test_step_outside_a_rank_does_nothing():

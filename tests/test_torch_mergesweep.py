@@ -430,5 +430,6 @@ def test_seg_elems_field_carries_from_jax_and_h100_row_is_measured():
     assert (config.RoutingParameters().mergesweep_seg_elems
             == jconfig.RoutingParameters().mergesweep_seg_elems)
     # the H100 row holds the length its chip run timed fastest, not the
-    # TPU's 2^24
+    # TPU's 2^24, and every field of the row is measured
     assert config._ROUTING_TABLE["h100"].mergesweep_seg_elems == 1 << 27
+    assert config._ROUTING_TABLE["h100"].measured is True

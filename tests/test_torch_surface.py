@@ -232,16 +232,18 @@ def test_auto_gate_cpu_always_flat():
 def test_auto_gate_cuda_row_and_override():
     h100 = dataclasses.replace(_CUDA_INFO, generation="h100")
     row = config.get_routing_parameters(h100)
-    assert row.measured is False
-    assert (row.rangesweep_min == row.rangesweep_min_pairs
-            == row.rangesweep_min_pairs_wide == row.rangesweep_min_index
-            == 1 << 28)
+    assert row.measured is True
+    # the card's measured row: the flat sort wins at every size swept, so
+    # every crossover is None and AUTO never takes rangesweep there
+    assert (row.rangesweep_min, row.rangesweep_min_pairs,
+            row.rangesweep_min_pairs_wide, row.rangesweep_min_index) == (
+        None, None, None, None)
     assert row.rangesweep_min_pairs_nonpow2 is None
-    assert row.rangesweep_seg_elems == 1 << 21
-    assert config.auto_engine(1 << 28, info=h100) == "rangesweep"
+    assert row.rangesweep_seg_elems == 1 << 22
+    assert config.auto_engine(1 << 28, info=h100) == "xla"
     assert config.auto_engine((1 << 28) - 1, info=h100) == "xla"
     assert config.auto_engine(1 << 28, config.Mode.PAIRS, payload_bits=64,
-                              info=h100) == "rangesweep"
+                              info=h100) == "xla"
     # a card without a row keeps every route off ...
     assert config.auto_engine(1 << 30, info=_CUDA_INFO) == "xla"
     # ... until an override is installed
@@ -260,6 +262,45 @@ def test_auto_gate_cuda_row_and_override():
                                   info=_CUDA_INFO) == "xla"
     finally:
         config.clear_routing_override()
+
+
+# The "h100" rows as measured on the card (core/config.py, PERF.md).
+_H100_TUNING = {
+    config.Mode.KEYS_ONLY: {"partition_rows": 128, "radix_tile_rows": 128,
+                            "network_smem_bytes": 232448, "measured": True},
+    config.Mode.PAIRS: {"partition_rows": 256, "radix_tile_rows": 256,
+                        "network_smem_bytes": 232448, "measured": True},
+}
+_H100_ROUTING = {
+    "rangesweep_min": None, "rangesweep_seg_elems": 1 << 22,
+    "rangesweep_min_pairs": None, "rangesweep_seg_elems_pairs": 1 << 22,
+    "rangesweep_min_pairs_nonpow2": None,
+    "rangesweep_min_pairs_wide": None,
+    "rangesweep_seg_elems_pairs_wide": 1 << 23,
+    "rangesweep_min_index": None, "rangesweep_seg_elems_index": 1 << 23,
+    "mergesweep_seg_elems": 1 << 27, "ffx_tile_rows": 256,
+    "window_max_keys": 0, "window_max_fused": 0, "window_max_pairs": 0,
+    "segsort_bulk_max": 4096, "segsort_padded_max": 131072,
+    "segsort_extract_max_frac": 0.0, "measured": True,
+}
+
+
+def test_h100_rows_hold_their_measured_fields():
+    """Every field of both "h100" rows at the value its card run installed,
+    and AUTO's route on the card at the swept sizes (2^28, 2^29), one
+    below each and a non-power of two between them, in all four modes:
+    the flat sort everywhere."""
+    h100 = dataclasses.replace(_CUDA_INFO, generation="h100")
+    for mode, want in _H100_TUNING.items():
+        assert dataclasses.asdict(config.get_tuning_parameters(
+            h100, mode)) == want
+    assert dataclasses.asdict(config.get_routing_parameters(h100)) == (
+        _H100_ROUTING)
+    P = config.Mode.PAIRS
+    for n in (1 << 28, (1 << 28) - 1, 3 << 27, 1 << 29, (1 << 29) - 1):
+        for kw in ({}, {"mode": P}, {"mode": P, "payload_bits": 64},
+                   {"mode": P, "index_payload": True}):
+            assert config.auto_engine(n, info=h100, **kw) == "xla", (n, kw)
 
 
 def test_auto_engine_agrees_with_jax_on_its_rows():
