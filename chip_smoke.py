@@ -162,7 +162,8 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      kernel timed at the path's shapes, the last chunk of the cap n + 2^20
      call (a 2^20-slot tail) and a 2^26-slot chunk with no tail, each as
      one call between events and as calls queued behind a spin (the card's
-     time alone);
+     time alone), the tail chunk also beside masked_fill_ per plane with
+     the mask built in the call, timed both ways;
  18. four gloo ranks on the one card (2^26 global u32 pairs, the
      collective exchange on CUDA tensors), each rank's blocks held bit for
      bit against the same group's CPU run; remote_dma's refusal recorded;
@@ -189,15 +190,23 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      2^28 (its line carries the card), segsort at 2^22, dist over 4 gloo
      ranks on the card at 2^24, autotune on rts and radix16 at 2^24,
      --routing at 2^22 and --rangesweep at 2^26, each command's seconds,
-     output (the sweeps) and launches on a line; then the bench script
-     (`python -m gpusorting_tpu_torch.bench`, AUTO and --flat) in a
-     process of its own, its one line parsed; the tuning and routing rows
-     read as before and no override is left installed;
+     output (the sweeps) and launches on a line; then the bench script,
+     AUTO and --flat, each in a process of its own, as `python -m
+     gpusorting_tpu_torch.bench` from the root and by its path from
+     another directory: exactly one line, 4 chains of 5 sorts (batch 20),
+     `backend_native_kernels` as `ops/radix.is_native` reads the card's
+     row; the tuning and routing rows read as before and no override is
+     left installed;
  21. the host runtime in C++ (gpusorting_tpu_torch/native/), built with
      g++ on the card's host: available() must hold; fill_hybrid_taus at
      2^24 bit for bit against prng.hybrid_taus_bits on the card, and
      radix_sort / radix_sort_pairs at 2^22 against the flat stable
-     torch.sort of the same codes on the card; a CUDA tensor refused.
+     torch.sort of the same codes on the card; a CUDA tensor refused;
+ 22. the entry script (gpusorting_tpu_torch/entry.py): entry()'s step, a
+     stable u32 pairs sort at 2^16, bit for bit against the flat stable
+     torch.sort; dryrun_multichip(1), one NCCL rank, all five checks of
+     the JAX dry run; dryrun_multichip(4), four gloo ranks sharing the
+     card, remote_dma named as refused; each with its seconds.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -522,8 +531,8 @@ def main() -> int:
                           ("auto_installed_2", auto_fn),
                           ("auto_rangesweep_2", forced(auto_fn)),
                           ("flat_torch_sort_2", flat_fn)):
-            r = timing.batch_timing(fn, N, batch=batch, seed=SEED,
-                                    device=dev)
+            r = timing.batch_timing(fn, N, batch=1, repeats=batch,
+                                    seed=SEED, device=dev)
             res[rname] = r["seconds_per_sort"] * 1e3
             emit(phase="end_to_end", what=what,
                  route=rname.replace("installed", route), n=N,
@@ -789,8 +798,8 @@ def main() -> int:
                  "device_radix"),
                 ("pallas_ffx_2", gstt.Backend.PALLAS, "ffx"),
                 ("flat_torch_sort_2", gstt.Backend.XLA, "onesweep")):
-            r = timing.batch_timing(make_fn(backend, variant), N,
-                                    batch=batch, seed=SEED, device=dev)
+            r = timing.batch_timing(make_fn(backend, variant), N, batch=1,
+                                    repeats=batch, seed=SEED, device=dev)
             emit(phase="end_to_end", what=what, route=route, n=N,
                  batch=batch, ms=r["seconds_per_sort"] * 1e3,
                  spread_ms=[r["spread_min_s"] * 1e3,
@@ -1196,8 +1205,9 @@ def main() -> int:
         routes.append(("flat_torch_sort", gstt.Backend.XLA, "onesweep"))
         for rep in ("", "_2"):
             for route, backend, variant in routes:
-                r = timing.batch_timing(make_fn(backend, variant), N,
-                                        batch=batch, seed=SEED, device=dev)
+                r = timing.batch_timing(make_fn(backend, variant), N, batch=1,
+                                        repeats=batch, seed=SEED,
+                                        device=dev)
                 emit(phase="end_to_end", what=what, route=route + rep, n=N,
                      batch=batch, ms=r["seconds_per_sort"] * 1e3,
                      spread_ms=[r["spread_min_s"] * 1e3,
@@ -2120,7 +2130,8 @@ def main() -> int:
                                                              variant=v)))
 
     def e2e_ms(fn):
-        r = timing.batch_timing(fn, N, batch=batch, seed=SEED, device=dev)
+        r = timing.batch_timing(fn, N, batch=1, repeats=batch, seed=SEED,
+                                device=dev)
         free()
         return r["seconds_per_sort"] * 1e3, [r["spread_min_s"] * 1e3,
                                              r["spread_max_s"] * 1e3]
@@ -2510,6 +2521,14 @@ def main() -> int:
                    for _ in range(3)]
     path_rc = torch.tensor([N], dtype=torch.int32, device=dev)
     fills = (codec.SENTINEL, -1, 0)
+    path_pos = torch.arange(3 * cw, 4 * cw, device=dev)
+
+    def path_library():
+        # masked_fill_ per plane, the mask built in the call
+        masked = path_pos[None, :] >= path_rc[:, None]
+        for w, f in zip(path_planes, fills):
+            w.masked_fill_(masked, f)
+
     # ms: one call between two events, the host's issue time included when
     # the card is idle; device_ms: 200 calls queued behind a spin, so the
     # events bracket the card's work alone
@@ -2521,9 +2540,15 @@ def main() -> int:
                                      col0=3 * cw), iters=200, device=dev),
         plain_ms=median_ms(lambda: rx.mask_arrivals_plain(
             path_planes, path_rc, fills, col0=3 * cw)),
+        library_ms=median_ms(path_library),
+        library_device_ms=timing.queued_device_time_ms(
+            path_library, iters=200, device=dev),
         bound_ms=4 * (big - N) * 3 / bw * 1e3)
     emit(phase="per_kernel", kernel="mask_arrivals", d=1, width=cw,
-         col0=3 * cw, operands=3, tail_slots=big - N, **path_times)
+         col0=3 * cw, operands=3, tail_slots=big - N,
+         library="masked_fill_ per plane, the mask built in the call",
+         **path_times)
+    del path_pos
     # a full chunk at the path's shape: the 2^28 ladder's chunk of 2^26
     # slots with no tail, as 60 of the path's 65 launches find their cells;
     # the bound is the one count read
@@ -2802,8 +2827,8 @@ def main() -> int:
                                 ("device_radix", "0"),
                                 ("device_radix_rows", "1")):
                 os.environ["GST_MEGACORE"] = gate
-                r = timing.batch_timing(fn, N, batch=batch, seed=SEED,
-                                        device=dev)
+                r = timing.batch_timing(fn, N, batch=1, repeats=batch,
+                                        seed=SEED, device=dev)
                 emit(phase="end_to_end_row_form", what=what, route=route,
                      gst_megacore=gate, n=N, batch=batch,
                      ms=r["seconds_per_sort"] * 1e3,
@@ -2981,30 +3006,42 @@ def main() -> int:
         _require(cli_launches[k] > 0,
                  f"phase 20: the commands launched no {k}")
 
-    # the bench script in a process of its own, AUTO and the flat sort
-    bench_lines = {}
-    for flag in ((), ("--flat",)):
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [sys.executable, "-m", "gpusorting_tpu_torch.bench", *flag],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        secs = time.perf_counter() - t0
-        _require(res.returncode == 0, f"phase 20: the bench script "
-                 f"{' '.join(flag)} exited {res.returncode}: "
-                 f"{res.stderr[-2000:]}")
-        lines = res.stdout.strip().splitlines()
-        _require(len(lines) == 1, f"phase 20: the bench script printed "
-                 f"{len(lines)} lines")
-        line = json.loads(lines[0])
-        want_route = "xla" if flag else gstt.auto_engine(N, info=info)
-        _require(line["value"] > 0 and line["detail"]["card"] == card
-                 and line["detail"]["route"] == want_route
-                 and line["detail"]["n"] == N,
-                 f"phase 20: bench script line {line}")
-        bench_lines[" ".join(flag) or "auto"] = line
-        emit(phase="bench_script", flags=list(flag), seconds=secs,
-             line=line)
+    # the bench script in a process of its own, AUTO and the flat sort, as
+    # `python -m` from the root and by its path from another directory:
+    # one line each, 4 chains of 5 sorts
+    from gpusorting_tpu_torch.ops import radix
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    native_route = radix.is_native(info)
+    bench_cwd = tempfile.TemporaryDirectory()
+    for how, argv, cwd in (
+            ("-m", ["-m", "gpusorting_tpu_torch.bench"], root),
+            ("path", [os.path.join(root, "gpusorting_tpu_torch", "bench.py")],
+             bench_cwd.name)):
+        for flag in ((), ("--flat",)):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, *argv, *flag],
+                                 capture_output=True, text=True,
+                                 timeout=600, cwd=cwd)
+            secs = time.perf_counter() - t0
+            _require(res.returncode == 0, f"phase 20: the bench script "
+                     f"({how}) {' '.join(flag)} exited {res.returncode}: "
+                     f"{res.stderr[-2000:]}")
+            lines = res.stdout.strip().splitlines()
+            _require(len(lines) == 1, f"phase 20: the bench script ({how}) "
+                     f"printed {len(lines)} lines")
+            line = json.loads(lines[0])
+            detail = line["detail"]
+            want_route = "xla" if flag else gstt.auto_engine(N, info=info)
+            _require(line["value"] > 0 and detail["card"] == card
+                     and detail["route"] == want_route
+                     and detail["n"] == N and detail["batch"] == 20
+                     and detail["repeats"] == 4
+                     and detail["backend_native_kernels"] == native_route,
+                     f"phase 20: bench script line ({how}) {line}")
+            emit(phase="bench_script", run=how, flags=list(flag),
+                 seconds=secs, line=line)
+    bench_cwd.cleanup()
     _require(rows_now() == rows_before and not config._TUNING_OVERRIDES
              and not config._ROUTING_OVERRIDE,
              "phase 20: a tuning or routing row changed")
@@ -3057,6 +3094,33 @@ def main() -> int:
          bit_exact=True, cuda_refused=refused,
          seconds=time.perf_counter() - t21)
     del want21, keys21, codes21, perm21
+
+    # ---- phase 22: the entry script (entry.py), the flagship step and the
+    # multi-chip dry run
+    from gpusorting_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    step, (ekeys, evals) = entry.entry()
+    eok, eov = step(ekeys, evals)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    eperm = oracle_perm(ekeys)
+    _require(ekeys.device == dev and same_bits(eok, ekeys, eperm, orders[0])
+             and same_bits(eov, evals, eperm, orders[0]),
+             "phase 22: the entry step != the flat stable torch.sort")
+    emit(phase="entry", n=ekeys.shape[0], seconds=step_s, bit_exact=True)
+    del ekeys, evals, eok, eov, eperm
+    for ranks, backend, refused in ((1, "nccl", ()),
+                                    (4, "gloo", ("remote_dma",))):
+        t0 = time.perf_counter()
+        dry = entry.dryrun_multichip(ranks)
+        secs = time.perf_counter() - t0
+        _require(dry["backend"] == backend
+                 and dry["checks"] == [c for c in entry.CHECKS
+                                       if c not in refused]
+                 and tuple(dry["refused"]) == refused,
+                 f"phase 22: dryrun_multichip({ranks}) {dry}")
+        emit(phase="dryrun_multichip", seconds=secs, **dry)
 
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
@@ -3227,6 +3291,8 @@ def main() -> int:
          "path_chunk_device_ms": path_times["device_ms"],
          "path_chunk_plain_ms": path_times["plain_ms"],
          "path_chunk_bound_ms": path_times["bound_ms"],
+         "path_chunk_library_ms": path_times["library_ms"],
+         "path_chunk_library_device_ms": path_times["library_device_ms"],
          "full_chunk_ms": full_times["ms"],
          "full_chunk_device_ms": full_times["device_ms"],
          "full_chunk_plain_ms": full_times["plain_ms"],

@@ -134,6 +134,12 @@ class DeviceInfo:
     hbm_bytes: int
     hbm_gbps: float
 
+    @property
+    def supports_pallas(self) -> bool:
+        """Backend.PALLAS runs its hand-written kernels here: a CUDA card
+        (the JAX package's: a TPU); elsewhere the plain versions run."""
+        return self.platform == "cuda"
+
 
 # Data-sheet HBM rates in GB/s, matched against the lower-cased device name
 # (NVIDIA H100 data sheet: the SXM card, whose name ends in "HBM3").  A card

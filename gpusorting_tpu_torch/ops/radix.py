@@ -24,9 +24,25 @@ from __future__ import annotations
 import torch
 
 from ..core import codec
-from ..core.config import Order
+from ..core.config import DeviceInfo, Order, auto_engine
 from . import bitonic, ffx, mergesweep, radix16, rts, splitsweep
 from .flat_sort import _flip
+
+
+def is_native(info: DeviceInfo | None = None) -> bool:
+    """True when AUTO's route at the headline size (2^28 keys, the bench
+    script's) on this device runs a hand-written kernel, that is when
+    `auto_engine(2^28, info=info)` is not the flat `torch.sort` ("xla").
+
+    Port of `gpusorting_tpu/ops/radix.py:is_native`, whose True meant
+    AUTO's flagship route ran a Pallas stage on the TPU.  On the card's
+    measured row (core/config.py "h100", measured on an NVIDIA H100 80GB
+    HBM3 at 700.00 W) AUTO takes the flat sort at 2^28 in every mode, so
+    this is False there; it is True only under a row or a routing override
+    that sends 2^28 keys to rangesweep, whose relocate kernel is
+    hand-written.  Always False off a CUDA card."""
+    return auto_engine(1 << 28, info=info) != "xla"
+
 
 PORTED = ("device_radix", "ffx", "onesweep", "forward_sweep", "radix16",
           "emulated_deadlocking", "splitsweep", "mergesweep")

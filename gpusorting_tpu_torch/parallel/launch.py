@@ -6,12 +6,14 @@ process with a torch.distributed process group set up.
 calls `fn(rank, world_size, *args)` in `world_size` spawned processes, each
 a rank of one gloo process group (gloo carries CPU tensors, and CUDA
 tensors for its collectives, so the ranks may share one card), and
-returns their return values in rank order.  `fn`, its arguments and its
-results are pickled, so `fn` is a module-level function of a module the
-children can import (they re-import it from scratch: a module that imports
-it should import nothing heavy at top level).  The ranks meet through a
-`file://` store in a fresh temporary directory, so concurrent calls never
-collide on a port.
+returns their return values in rank order (`backend="nccl"`: an NCCL
+group instead, rank r on card r, since NCCL takes one rank a card).
+`fn`, its arguments and its results are pickled, so `fn` is a
+module-level function of a module the children can import (they
+re-import it from scratch: a module that imports it should import
+nothing heavy at top level).  The ranks meet through a `file://` store
+in a fresh temporary directory, so concurrent calls never collide on a
+port.
 
 Every wait is bounded, in two stages that the parent times apart:
 
@@ -61,7 +63,7 @@ def step(what: str) -> None:
 
 
 def _rank_main(fn, rank: int, world_size: int, init: str, timeout: float,
-               threads: int, results, args) -> None:
+               threads: int, results, args, backend: str) -> None:
     global _REPORT
     _REPORT = (results, rank)
     step("started")
@@ -70,9 +72,13 @@ def _rank_main(fn, rank: int, world_size: int, init: str, timeout: float,
 
     torch.set_num_threads(threads)
     try:
+        kw = {}
+        if backend == "nccl":
+            kw["device_id"] = torch.device("cuda", rank)
+            torch.cuda.set_device(kw["device_id"])
         dist.init_process_group(
-            "gloo", init_method=init, rank=rank, world_size=world_size,
-            timeout=datetime.timedelta(seconds=timeout))
+            backend, init_method=init, rank=rank, world_size=world_size,
+            timeout=datetime.timedelta(seconds=timeout), **kw)
         step("joined")
     except Exception:   # reported to the parent, which fails the call
         results.put(("done", rank, False, traceback.format_exc()))
@@ -111,7 +117,8 @@ def _stop(procs) -> None:
             p.join(5)
 
 
-def _attempt(ctx, fn, world_size, args, timeout, join_timeout, threads):
+def _attempt(ctx, fn, world_size, args, timeout, join_timeout, threads,
+             backend):
     """One spawn of every rank; their results in rank order."""
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
@@ -119,7 +126,7 @@ def _attempt(ctx, fn, world_size, args, timeout, join_timeout, threads):
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(fn, r, world_size, init,
                                    join_timeout + timeout, threads, results,
-                                   args))
+                                   args, backend))
                  for r in range(world_size)]
         t0 = time.time()
         for p in procs:
@@ -190,7 +197,7 @@ def _attempt(ctx, fn, world_size, args, timeout, join_timeout, threads):
 
 
 def run_ranks(fn, world_size: int, *args, timeout: float = 120.0,
-              threads: int = 1) -> list:
+              threads: int = 1, backend: str = "gloo") -> list:
     """`fn(rank, world_size, *args)` on `world_size` spawned ranks; their
     results in rank order.  The ranks must all join the group within
     JOIN_TIMEOUT seconds (else they are spawned once more, and then the
@@ -201,11 +208,11 @@ def run_ranks(fn, world_size: int, *args, timeout: float = 120.0,
     ctx = mp.get_context("spawn")
     try:
         return _attempt(ctx, fn, world_size, args, timeout, JOIN_TIMEOUT,
-                        threads)
+                        threads, backend)
     except _Rendezvous as first:
         try:
             return _attempt(ctx, fn, world_size, args, timeout,
-                            JOIN_TIMEOUT, threads)
+                            JOIN_TIMEOUT, threads, backend)
         except _Rendezvous as second:
             raise RuntimeError(f"run_ranks: the rendezvous failed twice: "
                                f"{first}; then {second}") from None

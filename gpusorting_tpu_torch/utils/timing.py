@@ -112,19 +112,27 @@ def host_time_ms(fn, iters: int = 1000, warmup: int = 3,
 
 def batch_timing(sort_fn, n: int, batch: int = 10, seed: int = 10,
                  entropy: EntropyPreset = EntropyPreset.E100,
+                 repeats: int = 1,
                  key_dtype: torch.dtype = torch.uint32,
                  device: torch.device | str = "cuda") -> dict:
-    """Time `sort_fn(keys)` per the reference harness rules over `batch`
-    iterations (plus one warm-up); keys are `key_dtype` from
-    `prng.make_test_keys(n, i + seed)` on the device.
+    """Time `sort_fn(keys)` per the reference harness rules: one warm-up,
+    then `repeats` timed chains of `batch` sorts, each sort bracketed by a
+    CUDA event pair; keys are `key_dtype` from `prng.make_test_keys(n,
+    i + seed)` on the device, i = 0 the warm-up and i = 1, 2, ... the
+    timed sorts in order.
 
-    Returns {"seconds_per_sort", "keys_per_sec", "n", "batch",
-    "spread_min_s", "spread_max_s", "total_seconds", "device"}."""
+    As in the JAX package, `seconds_per_sort` is the mean of the chains'
+    per-sort means and the spread is their min and max, so a spread
+    compares chains, not single sorts (`batch=1, repeats=k` spreads k
+    single sorts).  Returns {"seconds_per_sort", "keys_per_sec", "n",
+    "batch" (batch * repeats sorts timed), "repeats", "spread_min_s",
+    "spread_max_s", "total_seconds", "device"}."""
     dev = _require_cuda(device)
+    repeats = max(1, repeats)
     per_sort = []
     wall0 = time.perf_counter()
     with torch.cuda.device(dev):
-        for i in range(batch + 1):
+        for i in range(batch * repeats + 1):
             keys = prng.make_test_keys(n, i + seed, key_dtype, entropy,
                                        device=dev)
             start = torch.cuda.Event(enable_timing=True)
@@ -136,14 +144,17 @@ def batch_timing(sort_fn, n: int, batch: int = 10, seed: int = 10,
             del out, keys
             if i > 0:   # the warm-up iteration is excluded
                 per_sort.append(start.elapsed_time(end) / 1e3)
-    mean = statistics.fmean(per_sort)
+    chains = [statistics.fmean(per_sort[r * batch:(r + 1) * batch])
+              for r in range(repeats)]
+    mean = statistics.fmean(chains)
     return {
         "seconds_per_sort": mean,
         "keys_per_sec": n / mean,
         "n": n,
-        "batch": batch,
-        "spread_min_s": min(per_sort),
-        "spread_max_s": max(per_sort),
+        "batch": batch * repeats,
+        "repeats": repeats,
+        "spread_min_s": min(chains),
+        "spread_max_s": max(chains),
         "total_seconds": time.perf_counter() - wall0,
         "device": torch.cuda.get_device_name(dev),
     }

@@ -1,6 +1,7 @@
 """Console driver tests (`python -m gpusorting_tpu_torch`), mirroring
 tests/test_cli.py, and the bench script (`python -m
-gpusorting_tpu_torch.bench`).
+gpusorting_tpu_torch.bench`, or run by its path) with the route flag it
+prints, `ops/radix.is_native`.
 
 On the CPU the suites run with `--device cpu` on the kernels' plain
 versions; `bench`, `autotune` and the bench script time the card, so
@@ -19,6 +20,9 @@ import gpusorting_tpu as gst
 import gpusorting_tpu_torch as gstt
 from gpusorting_tpu.__main__ import main as jmain
 from gpusorting_tpu_torch.__main__ import _parse_size, build_parser, main
+from gpusorting_tpu_torch.core import config
+from gpusorting_tpu_torch.ops import radix
+from gpusorting_tpu_torch.utils import timing
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -142,6 +146,54 @@ def test_bench_script_refuses_the_cpu():
     assert res.returncode != 0
     assert res.stdout == ""
     assert "timing needs a CUDA device" in res.stderr
+
+
+def test_bench_script_runs_by_its_path(tmp_path):
+    """Run by its path from another directory, the script gets as far as
+    the timing's refusal, not to a ModuleNotFoundError."""
+    res = subprocess.run(
+        [sys.executable, str(_ROOT / "gpusorting_tpu_torch" / "bench.py"),
+         "--device", "cpu"], capture_output=True, text=True, timeout=120,
+        cwd=tmp_path)
+    assert res.returncode != 0
+    assert res.stdout == ""
+    assert "ModuleNotFoundError" not in res.stderr
+    assert "timing needs a CUDA device" in res.stderr
+
+
+def test_batch_timing_with_repeats_refuses_the_cpu():
+    with pytest.raises(RuntimeError, match="timing needs a CUDA device"):
+        timing.batch_timing(lambda k: k, 16, batch=5, repeats=4,
+                            device="cpu")
+
+
+_H100 = config.DeviceInfo("cuda", "NVIDIA H100 80GB HBM3", "h100", 1,
+                          80 << 30, 3350.0)
+
+
+def test_is_native_false_on_the_h100_row_and_the_cpu():
+    assert config.get_routing_parameters(_H100).measured
+    assert radix.is_native(_H100) is False
+    assert radix.is_native(config.get_device_info("cpu")) is False
+    assert radix.is_native() is False         # no card here: the CPU
+
+
+def test_is_native_under_a_rangesweep_override():
+    """True where AUTO sends 2^28 keys to rangesweep; the CPU still takes
+    the flat route under the same override."""
+    config.set_routing_override(config.RoutingParameters(
+        rangesweep_min=1 << 28))
+    try:
+        assert radix.is_native(_H100) is True
+        assert radix.is_native(config.get_device_info("cpu")) is False
+    finally:
+        config.clear_routing_override()
+    config.set_routing_override(config.RoutingParameters(
+        rangesweep_min=(1 << 28) + 1))
+    try:
+        assert radix.is_native(_H100) is False
+    finally:
+        config.clear_routing_override()
 
 
 def test_port_surface_covers_jax():

@@ -1590,3 +1590,26 @@ def test_cli_bench_line_parses(cuda, capsys):
     res = json.loads(capsys.readouterr().out)
     assert res["n"] == 1 << 20 and res["keys_per_sec"] > 0
     assert res["algorithm"] == "OneSweep" and "card" in res
+
+
+def test_batch_timing_chains(cuda):
+    """repeats chains of batch sorts: batch counts every sort timed, and
+    the chains' spread brackets the mean of their means."""
+    from gpusorting_tpu_torch.utils import timing
+
+    res = timing.batch_timing(
+        lambda k: gstt.sort(k, backend=gstt.Backend.XLA), 1 << 20,
+        batch=2, repeats=3, device=cuda)
+    assert res["batch"] == 6 and res["repeats"] == 3
+    assert (res["spread_min_s"] <= res["seconds_per_sort"]
+            <= res["spread_max_s"])
+    assert res["keys_per_sec"] == (1 << 20) / res["seconds_per_sort"]
+
+
+def test_is_native_on_the_card_row(cuda):
+    """AUTO's 2^28 route on the card's measured row is the flat sort."""
+    info = config.get_device_info(cuda)
+    if info.generation != "h100":
+        pytest.skip(f"no measured row for {info.device_kind}")
+    assert radix.is_native(info) is False
+    assert radix.is_native() is False

@@ -340,7 +340,7 @@ def test_timing_refuses_the_cpu():
 
 def test_port_imports_no_jax():
     """Importing every module of the port pulls in neither jax nor the JAX
-    package (checked in a fresh interpreter)."""
+    package, nor its entry script (checked in a fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import gpusorting_tpu_torch as p\n"
@@ -348,7 +348,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib', 'gpusorting_tpu.'))\n"
-        "             or m == 'gpusorting_tpu')\n"
+        "             or m in ('gpusorting_tpu', '__graft_entry__'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
