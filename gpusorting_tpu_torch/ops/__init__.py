@@ -19,7 +19,10 @@ segment sorts and Batcher merge passes (merge-tail kernel, and hyper-stage
 trips above the tile, or one global-stage kernel a stride under
 GST_MERGESWEEP_HYPER=0, which governs the network's levels too).
 `tile_rows=` overrides the radix tile.  All sort the same biased key codes
-(core.codec), so outputs are bit-identical across routes.
+(core.codec), so outputs are bit-identical across routes.  AUTO's choice
+is the span `dispatch.route`; the route a call runs is the span
+`engine.flat`, `engine.rangesweep` or `engine.pallas.<variant>`
+(utils/trace.py).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from ..core import codec
 from ..core.config import (Backend, Mode, Order, auto_engine,
                            get_device_info, get_routing_parameters)
+from ..utils.trace import span
 from . import flat_sort, radix, rangesweep
 from .flat_sort import _flip
 
@@ -46,10 +50,11 @@ def _check_lengths(keys, *others):
 def _route(keys: torch.Tensor, backend: Backend, mode: Mode = Mode.KEYS_ONLY,
            payload_bits: int = 32, index_payload: bool = False) -> bool:
     """True when AUTO sends this sort to rangesweep."""
-    return backend == Backend.AUTO and auto_engine(
-        keys.shape[0], mode, payload_bits=payload_bits,
-        info=get_device_info(keys.device),
-        index_payload=index_payload) == "rangesweep"
+    with span("dispatch.route"):
+        return backend == Backend.AUTO and auto_engine(
+            keys.shape[0], mode, payload_bits=payload_bits,
+            info=get_device_info(keys.device),
+            index_payload=index_payload) == "rangesweep"
 
 
 def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
@@ -61,12 +66,16 @@ def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
     the other backends ignore them."""
     _check_lengths(keys)
     if backend == Backend.PALLAS:
-        return radix.sort(keys, order=order, variant=variant,
-                          tile_rows=tile_rows)
+        with span("engine.pallas." + variant):
+            return radix.sort(keys, order=order, variant=variant,
+                              tile_rows=tile_rows)
     if _route(keys, backend):
-        sc = rangesweep.sort_codes_rangesweep(codec.encode_biased(keys))
-        return codec.decode_biased(_flip(sc, order), codec.key_type_of(keys))
-    return flat_sort.sort_keys(keys, order=order)
+        with span("engine.rangesweep"):
+            sc = rangesweep.sort_codes_rangesweep(codec.encode_biased(keys))
+            return codec.decode_biased(_flip(sc, order),
+                                       codec.key_type_of(keys))
+    with span("engine.flat"):
+        return flat_sort.sort_keys(keys, order=order)
 
 
 def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -82,19 +91,22 @@ def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         raise TypeError(f"lo/hi planes must be 32-bit, got {lo.dtype}, "
                         f"{hi.dtype}")
     if backend == Backend.PALLAS:
-        return radix.sort_pairs_wide(keys, lo, hi, order=order,
-                                     variant=variant, tile_rows=tile_rows)
+        with span("engine.pallas." + variant):
+            return radix.sort_pairs_wide(keys, lo, hi, order=order,
+                                         variant=variant, tile_rows=tile_rows)
     if _route(keys, backend, Mode.PAIRS, payload_bits=64):
-        r = get_routing_parameters(get_device_info(keys.device))
-        sc, slo, shi = rangesweep.sort_pairs_rangesweep_planes(
-            codec.encode_biased(keys),
-            (lo.view(torch.int32), hi.view(torch.int32)),
-            seg_elems=r.rangesweep_seg_elems_pairs_wide)
-        return (codec.decode_biased(_flip(sc, order),
-                                    codec.key_type_of(keys)),
-                _flip(slo, order).view(lo.dtype),
-                _flip(shi, order).view(hi.dtype))
-    return flat_sort.sort_pairs_wide(keys, lo, hi, order=order)
+        with span("engine.rangesweep"):
+            r = get_routing_parameters(get_device_info(keys.device))
+            sc, slo, shi = rangesweep.sort_pairs_rangesweep_planes(
+                codec.encode_biased(keys),
+                (lo.view(torch.int32), hi.view(torch.int32)),
+                seg_elems=r.rangesweep_seg_elems_pairs_wide)
+            return (codec.decode_biased(_flip(sc, order),
+                                        codec.key_type_of(keys)),
+                    _flip(slo, order).view(lo.dtype),
+                    _flip(shi, order).view(hi.dtype))
+    with span("engine.flat"):
+        return flat_sort.sort_pairs_wide(keys, lo, hi, order=order)
 
 
 def sort_batched(keys: torch.Tensor, values: torch.Tensor | None = None,
@@ -111,16 +123,19 @@ def sort_batched(keys: torch.Tensor, values: torch.Tensor | None = None,
         raise ValueError(f"payload shape {tuple(values.shape)} != keys "
                          f"shape {tuple(keys.shape)}")
     if backend == Backend.PALLAS:
-        if values is None:
-            return torch.stack([radix.sort(r, order=order, variant=variant,
-                                           tile_rows=tile_rows)
-                                for r in keys])
-        rows = [radix.sort_pairs(k, v, order=order, variant=variant,
-                                 tile_rows=tile_rows)
-                for k, v in zip(keys, values)]
-        return (torch.stack([k for k, _ in rows]),
-                torch.stack([v for _, v in rows]))
-    return flat_sort.sort_batched(keys, values, order=order)
+        with span("engine.pallas." + variant):
+            if values is None:
+                return torch.stack([radix.sort(r, order=order,
+                                               variant=variant,
+                                               tile_rows=tile_rows)
+                                    for r in keys])
+            rows = [radix.sort_pairs(k, v, order=order, variant=variant,
+                                     tile_rows=tile_rows)
+                    for k, v in zip(keys, values)]
+            return (torch.stack([k for k, _ in rows]),
+                    torch.stack([v for _, v in rows]))
+    with span("engine.flat"):
+        return flat_sort.sort_batched(keys, values, order=order)
 
 
 def argsort(keys: torch.Tensor, order: Order = Order.ASCENDING,
@@ -132,12 +147,14 @@ def argsort(keys: torch.Tensor, order: Order = Order.ASCENDING,
     permutation; return_keys=True also returns the sorted keys."""
     _check_lengths(keys)
     if _route(keys, backend, Mode.PAIRS, index_payload=True):
-        sc, perm = rangesweep.argsort_rangesweep(codec.encode_biased(keys))
-        perm = _flip(perm, order)
-        if return_keys:
-            return (codec.decode_biased(_flip(sc, order),
-                                        codec.key_type_of(keys)), perm)
-        return perm
+        with span("engine.rangesweep"):
+            sc, perm = rangesweep.argsort_rangesweep(
+                codec.encode_biased(keys))
+            perm = _flip(perm, order)
+            if return_keys:
+                return (codec.decode_biased(_flip(sc, order),
+                                            codec.key_type_of(keys)), perm)
+            return perm
     idx = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
     k, perm = sort_pairs(keys, idx, order=order, backend=backend,
                          variant=variant, tile_rows=tile_rows)
@@ -153,14 +170,17 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
     int32 planes and routes by its own threshold."""
     _check_lengths(keys, values)
     if backend == Backend.PALLAS:
-        return radix.sort_pairs(keys, values, order=order, variant=variant,
-                                tile_rows=tile_rows)
+        with span("engine.pallas." + variant):
+            return radix.sort_pairs(keys, values, order=order,
+                                    variant=variant, tile_rows=tile_rows)
     bits = codec.payload_to_bits(values)
     pbits = 64 if bits.dtype == torch.int64 else 32
     if _route(keys, backend, Mode.PAIRS, payload_bits=pbits):
-        sc, sb = rangesweep.sort_pairs_rangesweep(codec.encode_biased(keys),
-                                                  bits)
-        return (codec.decode_biased(_flip(sc, order),
-                                    codec.key_type_of(keys)),
-                codec.bits_to_payload(_flip(sb, order), values.dtype))
-    return flat_sort.sort_pairs(keys, values, order=order)
+        with span("engine.rangesweep"):
+            sc, sb = rangesweep.sort_pairs_rangesweep(
+                codec.encode_biased(keys), bits)
+            return (codec.decode_biased(_flip(sc, order),
+                                        codec.key_type_of(keys)),
+                    codec.bits_to_payload(_flip(sb, order), values.dtype))
+    with span("engine.flat"):
+        return flat_sort.sort_pairs(keys, values, order=order)

@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from ..utils.trace import span
+
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -55,8 +57,9 @@ def _compile(source: pathlib.Path) -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(source)], capture_output=True, text=True)
+    with span("build." + source.stem):
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(source)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name}:\n{proc.stderr}")
     os.replace(tmp, so)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core.config import get_device_info, get_tuning_parameters
+from ..utils.trace import launch_counter
 from . import _nvcc
 
 LANES = 128
@@ -246,6 +247,7 @@ def _device_schedule(dev: torch.device, tile_elems: int,
     return table, sched.shape[0], runs.shape[0]
 
 
+@launch_counter
 def local_stages(planes, sched: torch.Tensor, num_keys: int,
                  tile_rows: int) -> list:
     """Run the (S, 2) int32 (j, k) schedule `sched` (a CPU tensor, checked
@@ -288,9 +290,6 @@ def local_stages(planes, sched: torch.Tensor, num_keys: int,
     return outs
 
 
-local_stages.launches = 0
-
-
 # ---- global_stage ---------------------------------------------------------
 
 
@@ -306,6 +305,7 @@ def global_stage_plain(planes, j: int, k: int, num_keys: int,
     return planes
 
 
+@launch_counter
 def global_stage(planes, j: int, k: int, num_keys: int,
                  tile_rows: int) -> list:
     """One stage (j, k) with j of at least one tile over 1-4 (rows, 128)
@@ -336,9 +336,6 @@ def global_stage(planes, j: int, k: int, num_keys: int,
                  num_keys, n, j, k, device=dev)
     global_stage.launches += 1
     return planes
-
-
-global_stage.launches = 0
 
 
 # ---- the network ----------------------------------------------------------

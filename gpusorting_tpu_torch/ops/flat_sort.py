@@ -17,6 +17,7 @@ import torch
 
 from ..core import codec
 from ..core.config import Order
+from ..utils.trace import readback
 
 _M32 = 0xFFFFFFFF
 
@@ -106,7 +107,8 @@ def segment_ids_from_offsets(seg_offsets: torch.Tensor, n: int
     if off.dtype == torch.uint32:
         off = off.view(torch.int32)
     off = off.to(torch.int64) & _M32
-    off = off[off < n]
+    with readback("segment_mask", off):    # the count of kept starts
+        off = off[off < n]
     marks = torch.zeros((n,), dtype=torch.int64, device=off.device)
     marks.index_add_(0, off, torch.ones_like(off))
     return (torch.cumsum(marks, 0) - 1) & _M32

@@ -18,7 +18,8 @@ Port of `gpusorting_tpu/ops/kernels.py`:
 Codes are the port's biased int32 carriers (`core/codec.py`): the digit at
 `shift` is `((x ^ 0x80000000) >> shift) & 15`.  Each wrapper launches its
 kernel on a CUDA tensor (or raises) and takes the plain version only for a
-CPU tensor; `fn.launches` counts the kernel launches.
+CPU tensor; `fn.launches` counts the kernel launches, which
+`utils.trace.counts()` reads as `launch.kernels.<fn>`.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import functools
 import torch
 
 from ..core import codec
+from ..utils.trace import launch_counter
 from . import _nvcc
 
 LANES = 128
@@ -83,6 +85,7 @@ def _global_hist_library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def global_histogram(codes: torch.Tensor, passes: int = 4) -> torch.Tensor:
     """(passes, 256) int32 counts of the 8-bit digits 0..passes-1 of 1-D
     biased int32 codes (the digits of the u32 codes), in one read.
@@ -112,9 +115,6 @@ def global_histogram(codes: torch.Tensor, passes: int = 4) -> torch.Tensor:
     return out
 
 
-global_histogram.launches = 0
-
-
 # ---- Upsweep: tile_histogram4 ---------------------------------------------
 
 
@@ -141,6 +141,7 @@ def _hist_library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def tile_histogram4(codes2d: torch.Tensor, shift: int,
                     tile_rows: int) -> torch.Tensor:
     """(T, 16) int32 counts of the 4-bit digit at `shift` in each tile of
@@ -167,9 +168,6 @@ def tile_histogram4(codes2d: torch.Tensor, shift: int,
                  tile_rows * LANES, shift, device=dev)
     tile_histogram4.launches += 1
     return out
-
-
-tile_histogram4.launches = 0
 
 
 # ---- Scan: exclusive_scan -------------------------------------------------
@@ -231,6 +229,7 @@ def _scan_scratch(dev: torch.device, stream: int, words: int) -> tuple:
     return entry[0], entry[1]
 
 
+@launch_counter
 def exclusive_scan(values: torch.Tensor) -> torch.Tensor:
     """Exclusive prefix sum of a 1-D int32 tensor, wrapping like int32.
 
@@ -258,6 +257,3 @@ def exclusive_scan(values: torch.Tensor) -> torch.Tensor:
                  scratch.numel() - 1, epoch, device=dev, stream=stream)
     exclusive_scan.launches += 1
     return out
-
-
-exclusive_scan.launches = 0

@@ -46,6 +46,7 @@ import os
 import torch
 
 from ..core.config import get_device_info, get_routing_parameters
+from ..utils.trace import launch_counter
 from . import _nvcc, bitonic
 
 LANES = bitonic.LANES
@@ -135,6 +136,7 @@ def _tail_table(dev: torch.device, k: int, tile_elems: int) -> tuple:
     return bitonic._device_schedule(dev, tile_elems, sched.numpy().tobytes())
 
 
+@launch_counter
 def merge_tail(planes, k: int, tile_rows: int, num_keys: int) -> list:
     """The strides j = min(k, tile)/2, ..., 1 of merge pass k on every tile
     of `tile_rows` rows of 1-4 (rows, 128) int32 planes, IN PLACE (the
@@ -159,9 +161,6 @@ def merge_tail(planes, k: int, tile_rows: int, num_keys: int) -> list:
     return planes
 
 
-merge_tail.launches = 0
-
-
 # ---- hyper_stage ----------------------------------------------------------
 
 
@@ -180,6 +179,7 @@ def hyper_stage_plain(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
     return planes
 
 
+@launch_counter
 def hyper_stage(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
                 cols: int = MIN_COLS) -> list:
     """The consecutive strides j_hi, j_hi/2, ..., j_lo of level k over 1-4
@@ -211,9 +211,6 @@ def hyper_stage(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
                  cols, device=dev)
     hyper_stage.launches += 1
     return planes
-
-
-hyper_stage.launches = 0
 
 
 def hyper_trips(k: int, tile_elems: int, budget_elems: int):

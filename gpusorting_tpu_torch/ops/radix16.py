@@ -22,7 +22,7 @@ carriers of `core.codec`; rides are int32 bit carriers.
   pass skip  — a pass whose digit is the same for every element (its count
                is the padded total) is the identity and is skipped, as in
                JAX; that reads the (8, 16) counts to the host, the sort's
-               one synchronisation.
+               one synchronisation (the span `sync.digit_counts`).
   segments   — `segments=` cuts every pass into tile ranges, one launch
                (and one epoch) each, all writing into the same output
                buffers and each starting from the previous range's cursors:
@@ -50,6 +50,7 @@ import functools
 
 import torch
 
+from ..utils.trace import launch_counter, readback
 from . import _nvcc, kernels, rts
 
 LANES = kernels.LANES
@@ -137,6 +138,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
                  out=None, digits=None):
     """One stable pass of the 4-bit digit at `shift` over 1-3 (rows, 128)
@@ -204,9 +206,6 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
     return out, cursors_out
 
 
-binning_pass.launches = 0
-
-
 # ---- the engine -----------------------------------------------------------
 
 
@@ -226,7 +225,8 @@ def _sort_radix16(operands, tile_rows: int,
                     | {s for s in segments or () if 0 < s < total_tiles})
     if len(bounds) == 2:
         # the sort's one synchronisation: the counts decide the pass skip
-        skip = (digit_counts.max(dim=1).values == rows * LANES).tolist()
+        with readback("digit_counts", digit_counts):
+            skip = (digit_counts.max(dim=1).values == rows * LANES).tolist()
     for p in range(PASSES):
         shift = 4 * p
         if len(bounds) == 2:

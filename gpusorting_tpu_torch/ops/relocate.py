@@ -10,7 +10,8 @@ Contract, per bucket b of K, on (K*l_rows, 128) int32 planes:
 Every output row is written exactly once.
 
 `relocate` launches the kernel on a CUDA tensor and takes the plain version
-only for a CPU tensor; `relocate.launches` counts the kernel launches.  The
+only for a CPU tensor; `relocate.launches` counts the kernel launches
+(`utils.trace.counts()` reads it as `launch.relocate.relocate`).  The
 kernel is compiled with `nvcc` at first use from the package's own source
 (ops/_nvcc.py).
 """
@@ -22,6 +23,7 @@ import functools
 
 import torch
 
+from ..utils.trace import launch_counter
 from . import _nvcc
 
 SOURCE = _nvcc.CSRC / "relocate.cu"
@@ -65,6 +67,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
     _nvcc.check("relocate", name, t, shape, device, ref="src")
 
 
+@launch_counter
 def relocate(ctrl: torch.Tensor, src: torch.Tensor, fringe: torch.Tensor,
              K: int, l_rows: int, slab_rows: int) -> torch.Tensor:
     """Range-exchange relocate of one int32 plane (see module docstring).
@@ -88,6 +91,3 @@ def relocate(ctrl: torch.Tensor, src: torch.Tensor, fringe: torch.Tensor,
                  l_rows, slab_rows, device=dev)
     relocate.launches += 1
     return out
-
-
-relocate.launches = 0

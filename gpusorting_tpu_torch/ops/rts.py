@@ -43,6 +43,7 @@ import torch
 from ..core import codec
 from ..core.config import (Mode, get_device_info, get_tuning_parameters,
                            megacore_parallel)
+from ..utils.trace import launch_counter
 from . import _nvcc, kernels
 
 LANES = kernels.LANES
@@ -144,6 +145,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def downsweep(planes, table: torch.Tensor, shift: int,
               tile_rows: int) -> list:
     """One pass's stable scatter of 1-3 (rows, 128) int32 planes (plane 0
@@ -182,9 +184,6 @@ def downsweep(planes, table: torch.Tensor, shift: int,
                  device=dev)
     downsweep.launches += 1
     return outs
-
-
-downsweep.launches = 0
 
 
 # ---- Downsweep, row form, and its edge fixup -------------------------------
@@ -261,6 +260,7 @@ def _rows_library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
                    shift: int, tile_rows: int):
     """One pass's row-writing scatter of 1-3 (rows, 128) int32 planes
@@ -326,9 +326,6 @@ def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
     return outs, side
 
 
-downsweep_rows.launches = 0
-
-
 def edge_fixup_plain(rowtab: torch.Tensor, table: torch.Tensor,
                      side: torch.Tensor, outs) -> list:
     """Plain version of `edge_fixup`, vectorised: the present entries are
@@ -365,6 +362,7 @@ def _fixup_library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def edge_fixup(rowtab: torch.Tensor, table: torch.Tensor,
                side: torch.Tensor, outs) -> list:
     """OR each present side row into its output row, in place, for each of
@@ -420,9 +418,6 @@ def edge_fixup(rowtab: torch.Tensor, table: torch.Tensor,
                  rows, device=dev)
     edge_fixup.launches += 1
     return outs
-
-
-edge_fixup.launches = 0
 
 
 # ---- the engine -----------------------------------------------------------

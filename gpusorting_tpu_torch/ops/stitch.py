@@ -18,7 +18,7 @@ pass share on each stream (no clearing, no allocation a call).  The count
 is a 0-d int32 tensor on the mask's device, so no call waits for the card.
 Each wrapper launches its kernel on CUDA tensors (or raises) and takes the
 plain version only for CPU tensors; `fn.launches` counts the kernel
-launches.  The mask may start at any byte and each plane at any 4-byte
+launches (`utils.trace.counts()` reads it as `launch.stitch.<fn>`).  The mask may start at any byte and each plane at any 4-byte
 offset.  n is below 2^30.
 """
 
@@ -29,6 +29,7 @@ import functools
 
 import torch
 
+from ..utils.trace import launch_counter
 from . import _nvcc, kernels
 
 SOURCE = _nvcc.CSRC / "stitch.cu"
@@ -114,6 +115,7 @@ def compact_plain(values: tuple, mask: torch.Tensor):
     return tuple(outs), mask.sum(dtype=torch.int32)
 
 
+@launch_counter
 def compact_ops(values: tuple, mask: torch.Tensor):
     """Dense streams of `v[mask]` for 1-4 1-D int32 planes moved by the same
     bool mask, in input order.  Returns (packed_tuple, count): each packed
@@ -145,9 +147,6 @@ def compact_ops(values: tuple, mask: torch.Tensor):
     return outs, count
 
 
-compact_ops.launches = 0
-
-
 def compact(values: torch.Tensor, mask: torch.Tensor):
     """Dense stream of `values[mask]` (order-preserving) for one 1-D int32
     plane: (packed, count), `packed[:count]` the selected elements."""
@@ -173,6 +172,7 @@ def expand_plain(srcs: tuple, mask: torch.Tensor) -> tuple:
     return tuple(outs)
 
 
+@launch_counter
 def expand_ops(srcs: tuple, mask: torch.Tensor) -> tuple:
     """Place dense streams at the set positions of a bool mask: the inverse
     of `compact_ops`.  For each 1-D int32 plane, `out[i] = src[rank(i)]`
@@ -202,6 +202,3 @@ def expand_ops(srcs: tuple, mask: torch.Tensor) -> tuple:
                  device=dev, stream=stream)
     expand_ops.launches += 1
     return outs
-
-
-expand_ops.launches = 0

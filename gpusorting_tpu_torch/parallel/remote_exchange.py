@@ -32,7 +32,8 @@ fail on CUDA tensors, so `require_transport` refuses that pair.
 
 `mask_arrivals` launches the kernel on CUDA tensors (or raises) and takes
 `mask_arrivals_plain` only for CPU tensors; `mask_arrivals.launches` counts
-the kernel launches.  Planes are int32 (u32 bits viewed as int32); a fill
+the kernel launches (`utils.trace.counts()` reads it as
+`launch.remote_exchange.mask_arrivals`).  Planes are int32 (u32 bits viewed as int32); a fill
 is the carrier's own value: the JAX package's 0xFFFFFFFF is -1 here, and
 the biased code plane of the distributed sort fills with
 `core.codec.SENTINEL`.
@@ -47,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import _nvcc
+from ..utils.trace import launch_counter
 
 SOURCE = _nvcc.CSRC / "exchange_mask.cu"
 LANES = 128
@@ -113,6 +115,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@launch_counter
 def mask_arrivals(planes, rc: torch.Tensor, fills, col0: int = 0,
                   sources: range | None = None) -> None:
     """Mask arrived exchange blocks in place.
@@ -162,9 +165,6 @@ def mask_arrivals(planes, rc: torch.Tensor, fills, col0: int = 0,
                  *[int(f) for f in fills], *[0] * pad, len(planes),
                  rc.data_ptr(), src0, nsrc, width, col0, device=dev)
     mask_arrivals.launches += 1
-
-
-mask_arrivals.launches = 0
 
 
 def require_transport(group, device: torch.device, exchange: str) -> None:

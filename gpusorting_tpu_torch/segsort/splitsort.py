@@ -31,6 +31,9 @@ picks one from the offsets, read to the host once per call (or once per
   composite  — one sort of the (segment id, code) composite over the whole
                buffer, through the range-exchange engine where AUTO routes
                its size there.
+The choice is the span `dispatch.route` (with `dispatch.window_plan`
+inside it where the histogram is built), the route taken the span
+`engine.<name>` above, the offsets' copy `sync.offsets` (utils/trace.py).
 Codes are the biased int32 carriers of `core.codec`; payloads ride as int32
 planes, a 64-bit payload as two (lo, hi).
 
@@ -50,6 +53,7 @@ import torch
 from ..core import codec, config
 from ..core.config import KeyType, Mode
 from ..ops import flat_sort, rangesweep, stitch
+from ..utils.trace import readback, span
 
 _M32 = 0xFFFFFFFF
 _SID_BACK = 0x7FFFFFFF     # window back pads sort after every segment
@@ -88,7 +92,9 @@ def _host_offsets(seg_offsets) -> np.ndarray:
         t = seg_offsets
         if t.dtype == torch.uint32:
             t = t.view(torch.int32)
-        return t.cpu().numpy().astype(np.int64) & _M32
+        with readback("offsets", t):
+            t = t.cpu()
+        return t.numpy().astype(np.int64) & _M32
     return np.asarray(seg_offsets).astype(np.int64) & _M32
 
 
@@ -124,10 +130,11 @@ class SegSortPlan:
         """The (cached) _window_dispatch result for one key mode."""
         key = (bits_to_sort, has_payload)
         if key not in self._window_plans:
-            self._window_plans[key] = _window_dispatch(
-                self.offsets, self.total, self.seg_count,
-                bits_to_sort=bits_to_sort, has_payload=has_payload,
-                info=self.info)
+            with span("dispatch.window_plan"):
+                self._window_plans[key] = _window_dispatch(
+                    self.offsets, self.total, self.seg_count,
+                    bits_to_sort=bits_to_sort, has_payload=has_payload,
+                    info=self.info)
         return self._window_plans[key]
 
 
@@ -649,39 +656,27 @@ def _pick_window_mode(ml: int, sid_bits: int, bits_to_sort: int,
     return "stable3" if ml <= r.window_max_pairs else None
 
 
-def _dispatch_random_lengths(plan, seg_offsets, codes, payloads: tuple,
-                             total: int, seg_count: int, bits_to_sort: int,
-                             has_payload: bool,
-                             info: config.DeviceInfo | None = None):
-    """Histogram-driven dispatch of a `_window_dispatch` plan: the
-    length-class split, the class plan, the whole window ladder, or None
-    (the caller takes the composite)."""
-    if not plan:
-        return None
-    split = plan.get("split")
-    if split is not None:
-        if split["ml"] > 1:
+def _random_length_route(plan, bits_to_sort: int, has_payload: bool,
+                         info: config.DeviceInfo | None = None):
+    """The route a `_window_dispatch` plan takes: ("split", bulk mode),
+    ("classes", None), ("window", mode) or ("composite", None)."""
+    if plan:
+        split = plan.get("split")
+        if split is not None:
+            if split["ml"] <= 1:
+                return "split", None    # a bulk of length <= 1 is sorted
             bmode = _pick_window_mode(split["ml"], split["sid_bits"],
                                       bits_to_sort, has_payload, info)
-        else:
-            bmode = None  # a bulk of length <= 1 needs no sorting
-        if bmode is not None or split["ml"] <= 1:
-            return _split_class_segmented_sort(
-                seg_offsets, codes, payloads, seg_count, split, bmode,
-                bits_to_sort if bmode == "fused" else 0, bits_to_sort)
-    if "classes" in plan:
-        return _multi_class_segmented_sort(
-            seg_offsets, codes, payloads, seg_count, plan["classes"],
-            bits_to_sort, has_payload, info)
-    if "ml" in plan:
-        mode = _pick_window_mode(plan["ml"], plan["sid_bits"],
-                                 bits_to_sort, has_payload, info)
-        if mode is not None:
-            return _windowed_segmented_sort(
-                seg_offsets, codes, payloads, seg_count, plan["ml"],
-                mode=mode,
-                fuse_bits=bits_to_sort if mode == "fused" else 0)
-    return None
+            if bmode is not None:
+                return "split", bmode
+        if "classes" in plan:
+            return "classes", None
+        if "ml" in plan:
+            mode = _pick_window_mode(plan["ml"], plan["sid_bits"],
+                                     bits_to_sort, has_payload, info)
+            if mode is not None:
+                return "window", mode
+    return "composite", None
 
 
 def _check_call(bits_to_sort: int, strategy: str, keys: torch.Tensor,
@@ -714,30 +709,50 @@ def _segmented_sort(seg_offsets, codes: torch.Tensor, payloads: tuple,
             f"{total})")
     offs_dev = _device_offsets(seg_offsets, codes.device)
     offs = plan.offsets if plan is not None else _host_offsets(seg_offsets)
-    if strategy == "packed":
-        return _packed_bins_segmented_sort(offs_dev, offs, codes, payloads,
-                                           total_seg_count, total)
     has_payload = bool(payloads)
     info = config.get_device_info(codes.device)
-    if plan is not None:
-        L = plan.fixed_length
-    else:
-        L = _fixed_length_of(offs, total, total_seg_count)
-    if L is not None and L > 1:
-        return _batched_segmented_sort(codes, payloads, total_seg_count, L)
-    if plan is not None:
-        wp = plan.window_plan(bits_to_sort, has_payload)
-    else:
-        wp = _window_dispatch(offs, total, total_seg_count,
-                              bits_to_sort=bits_to_sort,
-                              has_payload=has_payload, info=info)
-    res = _dispatch_random_lengths(wp, offs_dev, codes, payloads, total,
-                                   total_seg_count, bits_to_sort,
-                                   has_payload, info)
-    if res is not None:
-        return res
-    return _composite_multi(offs_dev, codes, payloads, total_seg_count,
-                            bits_to_sort)
+    wp = L = mode = None
+    with span("dispatch.route"):
+        if strategy == "packed":
+            route = "packed"
+        else:
+            L = (plan.fixed_length if plan is not None
+                 else _fixed_length_of(offs, total, total_seg_count))
+            if L is not None and L > 1:
+                route = "fixed"
+            else:
+                if plan is not None:
+                    wp = plan.window_plan(bits_to_sort, has_payload)
+                else:
+                    with span("dispatch.window_plan"):
+                        wp = _window_dispatch(
+                            offs, total, total_seg_count,
+                            bits_to_sort=bits_to_sort,
+                            has_payload=has_payload, info=info)
+                route, mode = _random_length_route(wp, bits_to_sort,
+                                                   has_payload, info)
+    fuse_bits = bits_to_sort if mode == "fused" else 0
+    with span("engine." + route):
+        if route == "packed":
+            return _packed_bins_segmented_sort(
+                offs_dev, offs, codes, payloads, total_seg_count, total)
+        if route == "fixed":
+            return _batched_segmented_sort(codes, payloads, total_seg_count,
+                                           L)
+        if route == "split":
+            return _split_class_segmented_sort(
+                offs_dev, codes, payloads, total_seg_count, wp["split"],
+                mode, fuse_bits, bits_to_sort)
+        if route == "classes":
+            return _multi_class_segmented_sort(
+                offs_dev, codes, payloads, total_seg_count, wp["classes"],
+                bits_to_sort, has_payload, info)
+        if route == "window":
+            return _windowed_segmented_sort(
+                offs_dev, codes, payloads, total_seg_count, wp["ml"],
+                mode=mode, fuse_bits=fuse_bits)
+        return _composite_multi(offs_dev, codes, payloads, total_seg_count,
+                                bits_to_sort)
 
 
 def split_sort_pairs(

@@ -335,7 +335,7 @@ def _layouts(c: Ctx) -> list:
 
 def _route_sig(plan, bits: int, has_payload: bool) -> str:
     """The route `_segmented_sort` takes for this plan under the active
-    row, as `splitsort._dispatch_random_lengths` decides it."""
+    row, as `splitsort._random_length_route` decides it."""
     from gpusorting_tpu_torch.segsort import splitsort
 
     if plan.fixed_length is not None and plan.fixed_length > 1:
