@@ -23,8 +23,9 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      each went through the kernel;
   3. AUTO with no override at 2^28 for keys, pairs, 64-bit pairs and
      argsort: the route auto_engine picks on the installed row, bit for bit
-     against the flat sort, relocate launched only on a rangesweep route;
-     then times with CUDA events (utils/timing.py): end to end for AUTO on
+     against the flat sort, relocate launched only on a rangesweep route
+     and radix256 (5 launches, the count on the kernels line) only on a
+     radix256 route; then times with CUDA events (utils/timing.py): end to end for AUTO on
      the installed row, AUTO forced onto rangesweep and the flat
      torch.sort route, per phase of the engine, and the relocate kernel
      beside its bound and its plain version, for keys, pairs and argsort;
@@ -206,7 +207,16 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      stable u32 pairs sort at 2^16, bit for bit against the flat stable
      torch.sort; dryrun_multichip(1), one NCCL rank, all five checks of
      the JAX dry run; dryrun_multichip(4), four gloo ranks sharing the
-     card, remote_dma named as refused; each with its seconds.
+     card, remote_dma named as refused; each with its seconds;
+ 23. the 8-bit-digit radix sort (ops/radix256.py, AUTO's keys-only route
+     on the card's row; `radix256_phase`): its kernels against their plain
+     version, bit for bit, on u32, i32 and f32 keys at 1, 2, 3, around
+     its partition, a ragged 2^20 + 3 (also 4 bytes past a 16-byte line)
+     and 2^28, on uniform, E020, all-equal and single-digit keys, 5
+     launches a sort; AUTO both orders against the flat sort with no
+     readback; then its time at 2^28, the upsweep's and each pass's (a
+     torch.profiler trace) beside their byte bounds, radix16, the flat
+     sort, AUTO, the plain version and `torch.sort(codes).values`.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -277,6 +287,160 @@ def _phase18_rank(rank: int, world: int, n: int, seed: int) -> dict:
             "remote_dma": remote_dma}
 
 
+def _kernel_ms(prof, names: tuple, per_call: int) -> list:
+    """Device ms of each of the `per_call` kernels of one call, in launch
+    order, averaged over the calls a stopped torch.profiler recorded;
+    kernels are counted where their name holds one of `names`.  None where
+    the trace has no such kernels (no device activity recorded)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    ks = sorted((float(e["ts"]), float(e["dur"])) for e in events
+                if e.get("cat") == "kernel"
+                and any(m in e.get("name", "") for m in names))
+    calls = len(ks) // per_call
+    if not calls:
+        return None
+    return [statistics.fmean(ks[c * per_call + i][1] for c in range(calls))
+            / 1e3 for i in range(per_call)]
+
+
+def radix256_phase(dev, emit, n: int = N) -> dict:
+    """Phase 23: the 8-bit-digit radix sort (ops/radix256.py,
+    csrc/binning256.cu) against its plain version on the card, bit for bit:
+    u32, i32 and f32 keys (NaN, +-0, +-inf injected) at 1, 2, 3, around
+    the partition, a ragged 2^20 + 3 and n, from an input 4 bytes off a
+    16-byte line, on uniform, E020, all-equal and single-digit keys (one
+    digit takes every key in passes 1-3); 5 launches a sort; AUTO on the
+    installed row, both orders, against the flat sort, with no readback
+    under set_sync_debug_mode("error") where the row routes n to it.  Then
+    times at n: the sort and each of its 5 kernels (a torch.profiler trace
+    of 10 sorts) beside their byte bounds, radix16, the flat sort, AUTO,
+    the plain version and `torch.sort(codes).values`."""
+    import torch
+
+    import gpusorting_tpu_torch as gstt
+    from gpusorting_tpu_torch.core import codec, prng
+    from gpusorting_tpu_torch.ops import flat_sort, radix256
+    from gpusorting_tpu_torch.utils import timing
+
+    info = gstt.get_device_info(dev)
+    bw = info.hbm_gbps * 1e9
+    installed = gstt.get_routing_parameters(info)
+
+    def med(fn, iters=10):
+        return statistics.median(timing.device_time_ms(fn, iters=iters,
+                                                       device=dev))
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def keys_of(kind, size, dtype=torch.uint32, seed=SEED + 23):
+        if kind == "E020":
+            x = prng.make_test_keys(size, seed, dtype,
+                                    gstt.EntropyPreset.E020, device=dev)
+        else:
+            x = prng.make_test_keys(size, seed, dtype, device=dev)
+        raw = x.view(torch.int32)
+        if kind == "all_equal":
+            raw.fill_(0x1234ABCD)
+        elif kind == "single_digit":      # one digit in passes 1-3
+            raw.bitwise_and_(0xFF).bitwise_or_(0x5A3C1E00)
+        if dtype == torch.float32:
+            sp = torch.tensor([0x7FC00000, 0xFFC00001, 0, 0x80000000,
+                               0x7F800000, 0xFF800000, 0x7FFFFFFF,
+                               0xFFFFFFFF], dtype=torch.int64, device=dev)
+            sp = ((sp ^ 0x80000000) - 0x80000000).to(torch.int32)
+            pos = torch.arange(0, size, 997, device=dev)
+            raw[pos] = sp[pos % sp.numel()]
+        return x
+
+    part = radix256._library().gst_radix256_partition()
+    checked = []
+    for dtype in (torch.uint32, torch.int32, torch.float32):
+        for size in (1, 2, 3, part - 1, part, part + 1, (1 << 20) + 3, n):
+            for kind in (("uniform", "E020", "all_equal", "single_digit")
+                         if size in (n, (1 << 20) + 3) else ("uniform",)):
+                x = keys_of(kind, size, dtype)
+                for off in ((0, 1) if size == (1 << 20) + 3 else (0,)):
+                    if off:      # 4 bytes past a 16-byte line
+                        buf = torch.empty(size + 1, dtype=dtype, device=dev)
+                        buf[1:].copy_(x)
+                        x = buf[1:]
+                    before = radix256.sort.launches
+                    got = radix256.sort(x)
+                    torch.cuda.synchronize()
+                    _require(radix256.sort.launches - before == 5,
+                             "radix256: not 5 launches a sort")
+                    _require(same(got, radix256.sort_plain(x)),
+                             f"radix256 {dtype} n={size} {kind} off={off} "
+                             "!= its plain version")
+                    _require(same(got, flat_sort.sort_keys(x)),
+                             f"radix256 {dtype} n={size} {kind} != the "
+                             "flat sort")
+                    checked.append([str(dtype), size, kind, off])
+                del x, got
+            torch.cuda.empty_cache()
+    route = gstt.auto_engine(n, info=info)
+    x = keys_of("uniform", n, torch.float32)
+    for order in (gstt.Order.ASCENDING, gstt.Order.DESCENDING):
+        before = radix256.sort.launches
+        if route == "radix256":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = gstt.sort(x, order=order)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        _require(same(got, flat_sort.sort_keys(x, order=order)),
+                 f"AUTO {order.value} at {n} ({route}) != the flat sort")
+        _require((radix256.sort.launches - before == 5)
+                 == (route == "radix256"), f"AUTO at {n}: route {route}")
+    del x, got
+    emit(phase="radix256_vs_plain", partition=part, checked=checked,
+         auto_route=route, radix256_min=installed.radix256_min,
+         bit_exact=True)
+
+    # times at n
+    x = prng.make_test_keys(n, SEED + 24, device=dev)
+    codes = codec.encode_biased(x)
+    rec = {"n": n, "partition": part, "bound_ms": 8 * n / bw * 1e3,
+           "upsweep_bound_ms": 4 * n / bw * 1e3,
+           "sort_bound_ms": 4 * 8 * n / bw * 1e3}
+    rec["ms"] = med(lambda: radix256.sort(x))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            radix256.sort(x)
+        torch.cuda.synchronize()
+    per = _kernel_ms(prof, ("upsweep", "binning"), 5)
+    rec["upsweep_ms"] = per and per[0]
+    rec["pass_ms"] = per and per[1:]
+    for name, fn in (
+            ("radix16_ms", lambda: gstt.sort(x, backend=gstt.Backend.PALLAS,
+                                             variant="radix16")),
+            ("flat_ms", lambda: gstt.sort(x, backend=gstt.Backend.XLA)),
+            ("auto_ms", lambda: gstt.sort(x)),
+            ("library_ms", lambda: torch.sort(codes).values),
+            ("ms_2", lambda: radix256.sort(x))):
+        rec[name] = med(fn)
+    rec["plain_ms"] = med(lambda: radix256.sort_plain(x), iters=1)
+    for kind in ("E020", "all_equal"):
+        y = keys_of(kind, n, seed=SEED + 25)
+        rec[f"ms_{kind}"] = med(lambda: radix256.sort(y))
+        del y
+    del x, codes
+    torch.cuda.empty_cache()
+    emit(phase="radix256_times", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -292,8 +456,9 @@ def main() -> int:
     from gpusorting_tpu_torch.core import codec, prng
     from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, flat_sort,
                                           kernels, mergesweep, radix16,
-                                          relocate, rangesweep as rs, rts,
-                                          splitsweep, stitch)
+                                          radix256, relocate,
+                                          rangesweep as rs, rts, splitsweep,
+                                          stitch)
     from gpusorting_tpu_torch.parallel import dist_sort
     from gpusorting_tpu_torch.parallel import remote_exchange as rx
     from gpusorting_tpu_torch.parallel.launch import run_ranks
@@ -328,7 +493,7 @@ def main() -> int:
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
                bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE, rx.SOURCE,
-               rts.ROWS_SOURCE, rts.FIXUP_SOURCE)
+               rts.ROWS_SOURCE, rts.FIXUP_SOURCE, radix256.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -482,8 +647,9 @@ def main() -> int:
     # ---- phase 3: times --------------------------------------------------
     # AUTO under the installed row first: its route is auto_engine's for the
     # row in each mode, bit-exact with the flat sort, relocate launched only
-    # where that route is rangesweep; then AUTO timed with that route, with
-    # the forced rangesweep route and with the flat sort
+    # where that route is rangesweep and radix256 (5 launches) only where it
+    # is radix256; then AUTO timed with that route, with the forced
+    # rangesweep route and with the flat sort
     bw = info.hbm_gbps * 1e9
     batch = 5
     payload = torch.arange(N, dtype=torch.int32, device=dev)
@@ -508,9 +674,11 @@ def main() -> int:
         route = gstt.auto_engine(N, info=info, **kw)
         keys = prng.make_test_keys(N, SEED + 9, torch.uint32, device=dev)
         before = relocate.relocate.launches
+        radix256.sort.launches = 0
         got = auto_fn(keys)
         torch.cuda.synchronize()
         reloc = relocate.relocate.launches - before
+        r256 = radix256.sort.launches
         want = flat_fn(keys)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -520,8 +688,13 @@ def main() -> int:
                  "sort")
         _require((reloc > 0) == (route == "rangesweep"),
                  f"AUTO {what}: route {route}, {reloc} relocate launches")
+        _require(r256 == (5 if route == "radix256" else 0),
+                 f"AUTO {what}: route {route}, {r256} radix256 launches")
+        if what == "keys":
+            r256_main_launches = r256
         auto_runs.append({"what": what, "route": route,
-                          "relocate_launches": reloc})
+                          "relocate_launches": reloc,
+                          "radix256_launches": r256})
         del keys, got, want
         free()
         res = {}
@@ -546,7 +719,7 @@ def main() -> int:
          row={k: getattr(installed_row, k) for k in (
              "rangesweep_min", "rangesweep_min_pairs",
              "rangesweep_min_pairs_wide", "rangesweep_min_index",
-             "measured")})
+             "radix256_min", "measured")})
     del payload, lo64, hi64
     free()
 
@@ -3122,6 +3295,10 @@ def main() -> int:
                  f"phase 22: dryrun_multichip({ranks}) {dry}")
         emit(phase="dryrun_multichip", seconds=secs, **dry)
 
+    # ---- phase 23: the 8-bit-digit radix sort, AUTO's keys route ---------
+    r256 = radix256_phase(dev, emit)
+    free()
+
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
         return {"name": kname, "route": "cuda",
@@ -3299,7 +3476,17 @@ def main() -> int:
          "full_chunk_bound_ms": full_times["bound_ms"],
          "all_masked_ms": mask_times["zero"]["ms"],
          "all_masked_plain_ms": mask_times["zero"]["plain_ms"],
-         "all_masked_bound_ms": mask_times["zero"]["bound_ms"]}]}),
+         "all_masked_bound_ms": mask_times["zero"]["bound_ms"]},
+        {"name": "radix256", "route": "cuda",
+         "source": "gpusorting_tpu_torch/csrc/binning256.cu",
+         "replaces": None, "launches": r256_main_launches, "max_abs_err": 0,
+         "ms": r256["ms"], "upsweep_ms": r256["upsweep_ms"],
+         "pass_ms": r256["pass_ms"], "plain_ms": r256["plain_ms"],
+         "bound_ms": r256["bound_ms"], "bound_by": "bytes (a pass)",
+         "sort_bound_ms": r256["sort_bound_ms"],
+         "upsweep_bound_ms": r256["upsweep_bound_ms"],
+         "library_ms": r256["library_ms"],
+         "library": "torch.sort(codes).values", "card": card}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,7 +111,8 @@ class Backend(enum.Enum):
               kernels here are hand-written CUDA.
     AUTO    — `auto_engine()` picks per size and device: on a CUDA card
               with a routing row, sorts at or above the row's thresholds
-              run the range-exchange engine (ops/rangesweep.py); all else
+              run the range-exchange engine (ops/rangesweep.py) or, keys
+              only, the 8-bit-digit radix sort (ops/radix256.py); all else
               runs the flat sort.
     """
 
@@ -350,6 +351,12 @@ class RoutingParameters:
       segsort_extract_max_frac  — multi-class dispatch runs only when the
                                   extracted share of the elements is at most
                                   this.
+      radix256_min              — smallest keys-only n AUTO sends to the
+                                  8-bit-digit radix sort (ops/radix256.py,
+                                  hand-written kernels; at most
+                                  `RADIX256_MAX_N` keys); None disables the
+                                  route.  The JAX package has no such route,
+                                  so its rows convert to None.
       measured                  — True only for a row measured on its card.
     """
 
@@ -370,7 +377,13 @@ class RoutingParameters:
     segsort_bulk_max: int = 4096
     segsort_padded_max: int = 131072
     segsort_extract_max_frac: float = 0.5
+    radix256_min: int | None = None
     measured: bool = False
+
+
+# The largest n the 8-bit-digit radix sort takes: its kernels index keys in
+# 32 bits (ops/radix256.py).
+RADIX256_MAX_N = (1 << 31) - 1
 
 
 _ROUTING_TABLE = {
@@ -422,6 +435,20 @@ _ROUTING_TABLE = {
     #   (65536, 524288), 128.772 wins by less than that spread, so the
     #   bounds stay.  They act only where the extraction share lets the
     #   multi-class route run, which it does not on this row.
+    # radix256_min: 2^11, the smallest n from which the radix sort wins at
+    #   every size swept: probes/torch_radix256_probe.py --sweep, AUTO on
+    #   u32 keys with the route forced on and off, n = 1, 16, 256 and
+    #   2^10 .. 2^29 at powers of two and halfway, events around each call
+    #   from an empty stream.  The flat sort wins at 2^10 (0.083 against
+    #   0.103 ms) and 1536 (0.093 against 0.100); from 2^11 the radix sort
+    #   wins at every size: 0.118 against 0.153 ms at 2^11, 0.126 against
+    #   0.226 at 2^16, 0.109 against 0.167 at 2^20, 7.190 against 15.525
+    #   at 2^28, 14.184 against 30.315 at 2^29.  A second sweep had the
+    #   radix sort ahead at every size, 1 included (0.111 against 0.136 ms
+    #   at 2^10, 0.119 against 0.145 at 1536).  Below 2^17 both routes
+    #   take the host's time a call (0.08-0.33 ms, the radix sort's nearly
+    #   flat at 0.09-0.19), so the crossover moves with the host's jitter;
+    #   2^11 is the smallest n the radix sort won from in both sweeps.
     # segsort_extract_max_frac: 0.0, so the multi-class route never runs:
     #   the probe at the picks above, all three modes summed, 116.601 ms at
     #   0.0 (and 0.1, 0.25: the same routes) against 175.506 at 0.5 and
@@ -443,6 +470,7 @@ _ROUTING_TABLE = {
                               segsort_bulk_max=4096,
                               segsort_padded_max=131072,
                               segsort_extract_max_frac=0.0,
+                              radix256_min=1 << 11,
                               measured=True),
 }
 
@@ -486,12 +514,15 @@ def auto_engine(n: int, mode: Mode = Mode.KEYS_ONLY,
                 payload_bits: int = 32,
                 info: DeviceInfo | None = None,
                 index_payload: bool = False) -> str:
-    """THE AUTO routing decision: "rangesweep" or "xla" (the flat sort).
+    """THE AUTO routing decision: "rangesweep", "radix256" or "xla" (the
+    flat sort).
 
     Port of `gpusorting_tpu/core/config.py:auto_engine`, with the platform
     gate moved from TPU to CUDA: a CPU tensor always takes the flat route.
     index_payload=True is argsort (payload == index, 2 planes), routed by
-    `rangesweep_min_index`.
+    `rangesweep_min_index`.  Keys-only sorts the JAX rules leave on the flat
+    sort go to "radix256" from the row's `radix256_min` (a route the JAX
+    package does not have) up to `RADIX256_MAX_N`.
     """
     inf = info or get_device_info()
     if inf.platform != "cuda":
@@ -510,6 +541,10 @@ def auto_engine(n: int, mode: Mode = Mode.KEYS_ONLY,
                 return "rangesweep"
     else:
         m = r.rangesweep_min
+        k = r.radix256_min
+        if (k is not None and k <= n <= RADIX256_MAX_N
+                and (m is None or n < m)):
+            return "radix256"
     return "rangesweep" if (m is not None and n >= m) else "xla"
 
 

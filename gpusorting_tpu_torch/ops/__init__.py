@@ -5,7 +5,9 @@ the device of the tensor it is given.  `backend=AUTO` asks
 `core.config.auto_engine` for that device and size: on a CUDA card with a
 routing row, sorts at or above the row's thresholds run the range-exchange
 engine (ops/rangesweep.py, whose exchange is the hand-written relocate
-kernel); everything else runs the flat `torch.sort` (ops/flat_sort.py).
+kernel) or, keys only, the 8-bit-digit radix sort (ops/radix256.py, its
+upsweep and four passes hand-written kernels); everything else runs the
+flat `torch.sort` (ops/flat_sort.py).
 `backend=PALLAS` runs the engine family named by `variant=` (ops/radix.py):
 "onesweep" (the default) and "forward_sweep" the bitonic network, whose
 in-tile stages and above-tile hyper trips are hand-written kernels;
@@ -21,7 +23,8 @@ GST_MERGESWEEP_HYPER=0, which governs the network's levels too).
 `tile_rows=` overrides the radix tile.  All sort the same biased key codes
 (core.codec), so outputs are bit-identical across routes.  AUTO's choice
 is the span `dispatch.route`; the route a call runs is the span
-`engine.flat`, `engine.rangesweep` or `engine.pallas.<variant>`
+`engine.flat`, `engine.rangesweep`, `engine.radix256` or
+`engine.pallas.<variant>`
 (utils/trace.py).
 """
 
@@ -33,7 +36,7 @@ from ..core import codec
 from ..core.config import (Backend, Mode, Order, auto_engine,
                            get_device_info, get_routing_parameters)
 from ..utils.trace import span
-from . import flat_sort, radix, rangesweep
+from . import flat_sort, radix, radix256, rangesweep
 from .flat_sort import _flip
 
 
@@ -48,13 +51,15 @@ def _check_lengths(keys, *others):
 
 
 def _route(keys: torch.Tensor, backend: Backend, mode: Mode = Mode.KEYS_ONLY,
-           payload_bits: int = 32, index_payload: bool = False) -> bool:
-    """True when AUTO sends this sort to rangesweep."""
+           payload_bits: int = 32, index_payload: bool = False) -> str:
+    """The engine AUTO sends this sort to ("xla", the flat sort, for every
+    other backend)."""
     with span("dispatch.route"):
-        return backend == Backend.AUTO and auto_engine(
-            keys.shape[0], mode, payload_bits=payload_bits,
-            info=get_device_info(keys.device),
-            index_payload=index_payload) == "rangesweep"
+        if backend != Backend.AUTO:
+            return "xla"
+        return auto_engine(keys.shape[0], mode, payload_bits=payload_bits,
+                           info=get_device_info(keys.device),
+                           index_payload=index_payload)
 
 
 def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
@@ -69,11 +74,17 @@ def sort(keys: torch.Tensor, order: Order = Order.ASCENDING,
         with span("engine.pallas." + variant):
             return radix.sort(keys, order=order, variant=variant,
                               tile_rows=tile_rows)
-    if _route(keys, backend):
+    route = _route(keys, backend)
+    if route == "rangesweep":
         with span("engine.rangesweep"):
             sc = rangesweep.sort_codes_rangesweep(codec.encode_biased(keys))
             return codec.decode_biased(_flip(sc, order),
                                        codec.key_type_of(keys))
+    if route == "radix256":
+        with span("engine.radix256"):
+            out = radix256.sort(keys)
+            # torch's uint32 has no flip: reverse the bits as int32
+            return _flip(out.view(torch.int32), order).view(keys.dtype)
     with span("engine.flat"):
         return flat_sort.sort_keys(keys, order=order)
 
@@ -94,7 +105,7 @@ def sort_pairs_wide(keys: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
         with span("engine.pallas." + variant):
             return radix.sort_pairs_wide(keys, lo, hi, order=order,
                                          variant=variant, tile_rows=tile_rows)
-    if _route(keys, backend, Mode.PAIRS, payload_bits=64):
+    if _route(keys, backend, Mode.PAIRS, payload_bits=64) == "rangesweep":
         with span("engine.rangesweep"):
             r = get_routing_parameters(get_device_info(keys.device))
             sc, slo, shi = rangesweep.sort_pairs_rangesweep_planes(
@@ -146,7 +157,8 @@ def argsort(keys: torch.Tensor, order: Order = Order.ASCENDING,
     CreateTestInput).  Descending is the reverse of the ascending
     permutation; return_keys=True also returns the sorted keys."""
     _check_lengths(keys)
-    if _route(keys, backend, Mode.PAIRS, index_payload=True):
+    if _route(keys, backend, Mode.PAIRS,
+              index_payload=True) == "rangesweep":
         with span("engine.rangesweep"):
             sc, perm = rangesweep.argsort_rangesweep(
                 codec.encode_biased(keys))
@@ -175,7 +187,8 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
                                     variant=variant, tile_rows=tile_rows)
     bits = codec.payload_to_bits(values)
     pbits = 64 if bits.dtype == torch.int64 else 32
-    if _route(keys, backend, Mode.PAIRS, payload_bits=pbits):
+    if _route(keys, backend, Mode.PAIRS,
+              payload_bits=pbits) == "rangesweep":
         with span("engine.rangesweep"):
             sc, sb = rangesweep.sort_pairs_rangesweep(
                 codec.encode_biased(keys), bits)

@@ -37,10 +37,11 @@ def is_native(info: DeviceInfo | None = None) -> bool:
     Port of `gpusorting_tpu/ops/radix.py:is_native`, whose True meant
     AUTO's flagship route ran a Pallas stage on the TPU.  On the card's
     measured row (core/config.py "h100", measured on an NVIDIA H100 80GB
-    HBM3 at 700.00 W) AUTO takes the flat sort at 2^28 in every mode, so
-    this is False there; it is True only under a row or a routing override
-    that sends 2^28 keys to rangesweep, whose relocate kernel is
-    hand-written.  Always False off a CUDA card."""
+    HBM3 at 700.00 W) AUTO sends 2^28 keys to the 8-bit-digit radix sort
+    (ops/radix256.py), whose kernels are hand-written, so this is True
+    there; elsewhere it is True only under a row or a routing override
+    that sends 2^28 keys to rangesweep (its relocate kernel) or radix256.
+    Always False off a CUDA card."""
     return auto_engine(1 << 28, info=info) != "xla"
 
 

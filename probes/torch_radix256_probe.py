@@ -1,0 +1,219 @@
+#!/usr/bin/env python3
+"""Probe of the 8-bit-digit radix sort (ops/radix256.py,
+csrc/binning256.cu) on the card.
+
+    python3 probes/torch_radix256_probe.py [--sweep] [--shapes] [--n LOG2]
+
+Prints the card's name and power limit and `-Xptxas -v` of
+csrc/binning256.cu, then runs chip_smoke.py's phase 23 at n = 2^LOG2
+(default 28): the kernels against their plain version and the flat sort,
+bit for bit, and the times of the sort and of each of its kernels beside
+radix16, the flat sort and AUTO.  `--sweep` adds the size sweep that sets
+the card row's `radix256_min` (`_sweep`): AUTO on u32 keys with the route
+forced on and off, n = 1 .. 2^29.  `--shapes` builds other partitions
+(-DGST_R256_THREADS / _ITEMS / _MIN_BLOCKS), holds each
+build's sort equal to the flat sort's and times them in turns.  One
+JSON line a result; needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import itertools
+import json
+import os
+import pathlib
+import statistics
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+# build-time overrides of csrc/binning256.cu (-DGST_R256_<NAME>=<value>),
+# each against the source's defaults
+SHAPES = (
+    {},
+    {"ITEMS": 15},
+    {"ITEMS": 16},
+    {"THREADS": 384, "ITEMS": 20},
+    {"THREADS": 256, "ITEMS": 15, "MIN_BLOCKS": 4},
+)
+
+
+def _ptxas(src, extra=()):
+    from gpusorting_tpu_torch.ops import _nvcc
+    out = subprocess.run(
+        [_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, *extra, "-Xptxas", "-v", "-o",
+         os.devnull, str(src)], capture_output=True, text=True)
+    if out.returncode:
+        print(out.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"nvcc failed on {src.name}")
+    return [ln.split(":", 1)[-1].strip()[:150]
+            for ln in out.stderr.splitlines()
+            if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def _name(shape: dict) -> str:
+    return ",".join(f"{k}={v}" for k, v in shape.items()) or "default"
+
+
+def _build_shape(shape):
+    from gpusorting_tpu_torch.ops import _nvcc, radix256
+    flags = [f"-DGST_R256_{m}={v}" for m, v in shape.items()]
+    so = (ROOT / "gpusorting_tpu_torch" / "_build"
+          / ("binning256_" + "_".join(f"{k}{v}" for k, v in shape.items())
+             + ".so"))
+    proc = subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, *flags,
+                           "-Xptxas", "-v", "-o", str(so),
+                           str(radix256.SOURCE)],
+                          capture_output=True, text=True)
+    regs = sorted({ln.split(":", 1)[-1].strip()[:90]
+                   for ln in proc.stderr.splitlines()
+                   if "Used" in ln or "spill" in ln})
+    return so, proc, regs
+
+
+def _shapes(dev, emit, n):
+    import concurrent.futures
+
+    from gpusorting_tpu_torch.core import prng
+    from gpusorting_tpu_torch.ops import flat_sort, kernels
+    from gpusorting_tpu_torch.utils import timing
+
+    x = prng.make_test_keys(n, 77, device=dev)
+    want = flat_sort.sort_keys(x)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    (ROOT / "gpusorting_tpu_torch" / "_build").mkdir(exist_ok=True)
+    with concurrent.futures.ThreadPoolExecutor(len(SHAPES)) as pool:
+        built = list(zip(SHAPES, pool.map(_build_shape, SHAPES)))
+    libs = {}
+    for shape, (so, proc, regs) in built:
+        if proc.returncode:
+            emit(kernel="radix256_shape", shape=_name(shape),
+                 error=proc.stderr[-1500:])
+            continue
+        lib = ctypes.CDLL(str(so))
+        fn = lib.gst_radix256_sort
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
+            ctypes.c_uint] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                  ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        counts = torch.zeros(4096, dtype=torch.int32, device=dev)
+        part = shape.get("THREADS", 512) * shape.get("ITEMS", 20)
+
+        def call(fn=fn, counts=counts, part=part):
+            out = torch.empty_like(x)
+            tmp = torch.empty_like(x)
+            eps = []
+            for _ in range(4):
+                scratch, e = kernels._scan_scratch(
+                    dev, stream, 256 * (-(-n // part)))
+                eps.append(e)
+            rc = fn(x.data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                    counts.data_ptr(), scratch.data_ptr(),
+                    scratch.numel() - 1, *eps, 0, n, stream)
+            if rc:
+                raise RuntimeError(f"CUDA error {rc}")
+            return out
+
+        got = call()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got.view(torch.int32),
+                                want.view(torch.int32)))
+        if same:
+            libs[_name(shape)] = call
+        emit(kernel="radix256_shape", shape=_name(shape), partition=part,
+             ptxas=regs, same=same)
+    times = {k: [] for k in libs}
+    for _ in range(2):
+        for k, call in list(libs.items()) + list(libs.items())[::-1]:
+            times[k] += timing.device_time_ms(call, iters=5, device=dev)
+    for k, ts in sorted(times.items(), key=lambda kv: statistics.median(
+            kv[1])):
+        emit(kernel="radix256_shape", shape=k, ms=statistics.median(ts),
+             spread=[min(ts), max(ts)])
+
+
+def _sweep(dev, emit):
+    """AUTO on u32 keys with the radix256 route forced on and off through a
+    routing override, at n = 1, 16, 256 and 2^10 .. 2^29 at powers of two
+    and halfway: events around each call from an empty stream (so a call's
+    host time counts where it exceeds its device time), inputs cycled
+    through a pool of up to 1024 tensors and at least 256 MiB where that
+    fits, 20 calls a turn in turns (off, on, on, off).  Emits each size's
+    medians and the smallest n from which the radix sort wins at every
+    larger size swept, the row's `radix256_min`."""
+    import gpusorting_tpu_torch as gstt
+    from gpusorting_tpu_torch.core import prng
+    from gpusorting_tpu_torch.utils import timing
+
+    installed = gstt.get_routing_parameters(gstt.get_device_info(dev))
+    on = dataclasses.replace(installed, radix256_min=1)
+    off = dataclasses.replace(installed, radix256_min=None)
+    sizes = sorted({1, 16, 256} | {1 << k for k in range(10, 30)}
+                   | {3 << (k - 1) for k in range(10, 29)})
+    rows = []
+    for size in sizes:
+        count = min(1024, max(4, -(-(256 << 20) // (4 * size))))
+        pool = [prng.make_test_keys(size, 1000 + i, device=dev)
+                for i in range(count)]
+        it = itertools.cycle(pool)
+        ms = {"off": [], "on": []}
+        for which in ("off", "on", "on", "off"):
+            gstt.set_routing_override(on if which == "on" else off)
+            try:
+                ms[which] += timing.device_time_ms(
+                    lambda: gstt.sort(next(it)), iters=20, device=dev)
+            finally:
+                gstt.clear_routing_override()
+        row = {"n": size, "flat_ms": statistics.median(ms["off"]),
+               "radix256_ms": statistics.median(ms["on"])}
+        rows.append(row)
+        emit(phase="radix256_sweep", **row)
+        del pool, it
+        torch.cuda.empty_cache()
+    wins = [r["radix256_ms"] < r["flat_ms"] for r in rows]
+    pick = next((r["n"] for i, r in enumerate(rows) if all(wins[i:])), None)
+    emit(phase="radix256_threshold", radix256_min=pick,
+         installed=installed.radix256_min, sizes=len(rows))
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--sweep", action="store_true")
+    p.add_argument("--shapes", action="store_true")
+    p.add_argument("--n", type=int, default=28)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+
+    import chip_smoke
+    from gpusorting_tpu_torch.ops import radix256
+    from gpusorting_tpu_torch.utils import timing
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    card = timing.card_line()
+
+    def emit(**rec):
+        rec["card"] = card
+        print(json.dumps(rec), flush=True)
+
+    emit(ptxas=_ptxas(radix256.SOURCE))
+    if args.shapes:
+        _shapes(dev, emit, 1 << args.n)
+    chip_smoke.radix256_phase(dev, emit, n=1 << args.n)
+    if args.sweep:
+        _sweep(dev, emit)
+    emit(ok=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

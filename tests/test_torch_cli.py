@@ -8,6 +8,7 @@ versions; `bench`, `autotune` and the bench script time the card, so
 there they must refuse, naming the CUDA requirement.  Tiny sizes.
 """
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -172,10 +173,19 @@ _H100 = config.DeviceInfo("cuda", "NVIDIA H100 80GB HBM3", "h100", 1,
 
 
 def test_is_native_false_on_the_h100_row_and_the_cpu():
+    """False on the CPU; on the card's measured row AUTO sends 2^28 keys to
+    the 8-bit-digit radix sort, whose kernels are hand-written, and False
+    again where the row's threshold lies above 2^28."""
     assert config.get_routing_parameters(_H100).measured
-    assert radix.is_native(_H100) is False
+    assert radix.is_native(_H100) is True
     assert radix.is_native(config.get_device_info("cpu")) is False
     assert radix.is_native() is False         # no card here: the CPU
+    config.set_routing_override(dataclasses.replace(
+        config.get_routing_parameters(_H100), radix256_min=(1 << 28) + 1))
+    try:
+        assert radix.is_native(_H100) is False
+    finally:
+        config.clear_routing_override()
 
 
 def test_is_native_under_a_rangesweep_override():

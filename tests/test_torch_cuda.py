@@ -138,14 +138,15 @@ def test_public_auto_route_on_card(cuda):
 
 def test_flagship_row_routes_rangesweep(cuda):
     """The card's measured row routes the flagship size: the flat sort
-    beat rangesweep at 2^28 and 2^29 in every mode, so AUTO takes the flat
-    route there (rangesweep runs only under an override)."""
+    beat rangesweep at 2^28 and 2^29 in every mode, so AUTO never takes
+    rangesweep there (it runs only under an override); keys-only sorts
+    take the 8-bit-digit radix sort."""
     info = config.get_device_info(cuda)
     if info.generation != "h100":
         pytest.skip(f"no routing row for {info.device_kind}")
     assert config.get_routing_parameters(info).measured is True
-    assert config.auto_engine(1 << 28, info=info) == "xla"
-    assert config.auto_engine((1 << 28) - 1, info=info) == "xla"
+    assert config.auto_engine(1 << 28, info=info) == "radix256"
+    assert config.auto_engine((1 << 28) - 1, info=info) == "radix256"
 
 
 # ---- the radix kernels (Upsweep, scan, downsweep) and the PALLAS engines ----
@@ -1607,9 +1608,125 @@ def test_batch_timing_chains(cuda):
 
 
 def test_is_native_on_the_card_row(cuda):
-    """AUTO's 2^28 route on the card's measured row is the flat sort."""
+    """AUTO's 2^28 keys route on the card's measured row is the 8-bit-digit
+    radix sort, whose kernels are hand-written."""
     info = config.get_device_info(cuda)
     if info.generation != "h100":
         pytest.skip(f"no measured row for {info.device_kind}")
-    assert radix.is_native(info) is False
-    assert radix.is_native() is False
+    assert radix.is_native(info) is True
+    assert radix.is_native() is True
+
+
+# ---- the 8-bit-digit radix sort (ops/radix256.py, csrc/binning256.cu) ----
+
+def _radix256_keys(kind, n, dtype, dev, seed=31):
+    raw = prng.make_test_keys(n, seed, torch.uint32, device=dev).view(
+        torch.int32)
+    if kind == "all_equal":
+        raw.fill_(0x1234ABCD)
+    elif kind == "single_digit":        # one digit in passes 1-3
+        raw.bitwise_and_(0xFF).bitwise_or_(0x5A3C1E00)
+    if dtype == torch.float32:
+        sp = torch.tensor([0x7FC00000, -0x3FFFFF, 0, -0x80000000,
+                           0x7F800000, -0x800000, 0x7FFFFFFF, -1],
+                          dtype=torch.int32, device=dev)
+        pos = torch.arange(0, n, 997, device=dev)
+        raw[pos] = sp[pos % sp.numel()]
+    return raw.view(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32])
+@pytest.mark.parametrize("n", [1 << 28, 1 << 20, (1 << 20) + 3, 7681, 1])
+def test_radix256_kernel_matches_plain(cuda, dtype, n):
+    """The kernels against their plain version, bit for bit, 5 launches a
+    sort."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    x = _radix256_keys("uniform", n, dtype, cuda)
+    before = radix256.sort.launches
+    got = radix256.sort(x)
+    torch.cuda.synchronize()
+    assert radix256.sort.launches == before + 5
+    want = radix256.sort_plain(x)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "single_digit"])
+@pytest.mark.parametrize("n", [1 << 26, (1 << 20) + 3])
+def test_radix256_one_digit_passes(cuda, kind, n):
+    """All-equal keys (one digit takes every key in every pass) and keys
+    whose passes 1-3 see one digit: the 256-digit lookback's worst cases;
+    also from an input 4 bytes past a 16-byte line."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    x = _radix256_keys(kind, n, torch.uint32, cuda)
+    buf = torch.empty(n + 1, dtype=torch.uint32, device=cuda)
+    buf[1:].copy_(x)
+    for keys in (x, buf[1:]):
+        got = radix256.sort(keys)
+        want = flat_sort.sort_keys(keys)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_radix256_refused_capture_leaves_its_stream_usable(cuda):
+    """radix256.sort raises under CUDA-graph capture before it allocates
+    the stream's counts buffer (a zero fill made under capture would only
+    be recorded), so the first eager sort on that stream afterwards is
+    still bit-exact."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    x = _radix256_keys("uniform", (1 << 20) + 3, torch.uint32, cuda)
+    want = flat_sort.sort_keys(x)
+    radix256.sort(x)              # built and run once outside capture
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    key = (x.device.index, side.cuda_stream)
+    radix256._COUNTS.pop(key, None)   # the stream's first radix256 call
+    before = radix256.sort.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="CUDA graph"):
+                radix256.sort(x)
+        finally:
+            graph.capture_end()
+    assert radix256.sort.launches == before
+    assert key not in radix256._COUNTS
+    with torch.cuda.stream(side):
+        got = radix256.sort(x)
+    side.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+
+
+def test_radix256_route_reads_nothing_back(cuda):
+    """AUTO's keys-only route on the card's row: one radix256 sort of 5
+    launches and no readback (set_sync_debug_mode("error") raises on
+    one), both orders equal to the flat sort."""
+    from gpusorting_tpu_torch.ops import radix256
+    from gpusorting_tpu_torch.utils import trace
+
+    info = config.get_device_info(cuda)
+    if info.generation != "h100":
+        pytest.skip(f"no routing row for {info.device_kind}")
+    n = 1 << 24
+    assert config.auto_engine(n, info=info) == "radix256"
+    x = _radix256_keys("uniform", n, torch.float32, cuda)
+    for order in (gstt.Order.ASCENDING, gstt.Order.DESCENDING):
+        before, spans = radix256.sort.launches, trace.counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = gstt.sort(x, order=order)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        after = trace.counts()
+        assert radix256.sort.launches == before + 5
+        assert after["engine.radix256"] == spans.get("engine.radix256",
+                                                     0) + 1
+        assert after.get("engine.flat", 0) == spans.get("engine.flat", 0)
+        want = flat_sort.sort_keys(x, order=order)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -240,8 +240,11 @@ def test_auto_gate_cuda_row_and_override():
         None, None, None, None)
     assert row.rangesweep_min_pairs_nonpow2 is None
     assert row.rangesweep_seg_elems == 1 << 22
-    assert config.auto_engine(1 << 28, info=h100) == "xla"
-    assert config.auto_engine((1 << 28) - 1, info=h100) == "xla"
+    # keys-only sorts from the row's radix256_min take the 8-bit-digit
+    # radix sort; every mode with a payload stays on the flat sort
+    assert config.auto_engine(1 << 28, info=h100) == "radix256"
+    assert config.auto_engine((1 << 28) - 1, info=h100) == "radix256"
+    assert config.auto_engine(row.radix256_min - 1, info=h100) == "xla"
     assert config.auto_engine(1 << 28, config.Mode.PAIRS, payload_bits=64,
                               info=h100) == "xla"
     # a card without a row keeps every route off ...
@@ -281,7 +284,8 @@ _H100_ROUTING = {
     "mergesweep_seg_elems": 1 << 27, "ffx_tile_rows": 256,
     "window_max_keys": 0, "window_max_fused": 0, "window_max_pairs": 0,
     "segsort_bulk_max": 4096, "segsort_padded_max": 131072,
-    "segsort_extract_max_frac": 0.0, "measured": True,
+    "segsort_extract_max_frac": 0.0, "radix256_min": 1 << 11,
+    "measured": True,
 }
 
 
@@ -289,7 +293,9 @@ def test_h100_rows_hold_their_measured_fields():
     """Every field of both "h100" rows at the value its card run installed,
     and AUTO's route on the card at the swept sizes (2^28, 2^29), one
     below each and a non-power of two between them, in all four modes:
-    the flat sort everywhere."""
+    keys take the 8-bit-digit radix sort from its measured threshold (and
+    the flat sort just below it); pairs, 64-bit pairs and argsort the flat
+    sort everywhere."""
     h100 = dataclasses.replace(_CUDA_INFO, generation="h100")
     for mode, want in _H100_TUNING.items():
         assert dataclasses.asdict(config.get_tuning_parameters(
@@ -297,10 +303,13 @@ def test_h100_rows_hold_their_measured_fields():
     assert dataclasses.asdict(config.get_routing_parameters(h100)) == (
         _H100_ROUTING)
     P = config.Mode.PAIRS
-    for n in (1 << 28, (1 << 28) - 1, 3 << 27, 1 << 29, (1 << 29) - 1):
-        for kw in ({}, {"mode": P}, {"mode": P, "payload_bits": 64},
+    m = _H100_ROUTING["radix256_min"]
+    for n in (1 << 28, (1 << 28) - 1, 3 << 27, 1 << 29, (1 << 29) - 1, m):
+        assert config.auto_engine(n, info=h100) == "radix256", n
+        for kw in ({"mode": P}, {"mode": P, "payload_bits": 64},
                    {"mode": P, "index_payload": True}):
             assert config.auto_engine(n, info=h100, **kw) == "xla", (n, kw)
+    assert config.auto_engine(m - 1, info=h100) == "xla"
 
 
 def test_auto_engine_agrees_with_jax_on_its_rows():

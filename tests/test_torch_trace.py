@@ -272,7 +272,7 @@ LAUNCH_COUNTERS = [
     ("bitonic", "global_stage"), ("mergesweep", "merge_tail"),
     ("mergesweep", "hyper_stage"), ("stitch", "compact_ops"),
     ("stitch", "expand_ops"), ("relocate", "relocate"),
-    ("remote_exchange", "mask_arrivals"),
+    ("remote_exchange", "mask_arrivals"), ("radix256", "sort"),
 ]
 _PACKAGE = {"remote_exchange": "gpusorting_tpu_torch.parallel"}
 
@@ -305,7 +305,7 @@ def test_a_launch_counter_reads_its_wrapper(module, fn):
 
 @pytest.mark.parametrize("engine", [
     "radix16", "device_radix", "device_radix_rows", "onesweep",
-    "onesweep_global_stages", "split", "rangesweep"])
+    "onesweep_global_stages", "split", "rangesweep", "radix256"])
 def test_plain_paths_agree_with_the_counters(engine, monkeypatch):
     """The engines' plain paths on the CPU launch nothing: every launch
     counter in counts() agrees with its wrapper's `fn.launches` after a
@@ -320,6 +320,9 @@ def test_plain_paths_agree_with_the_counters(engine, monkeypatch):
     elif engine == "rangesweep":
         monkeypatch.setattr(ops, "auto_engine", lambda *a, **k: "rangesweep")
         gstt.sort_pairs(_keys(1 << 16), _keys(1 << 16, seed=2))
+    elif engine == "radix256":
+        monkeypatch.setattr(ops, "auto_engine", lambda *a, **k: "radix256")
+        gstt.sort(_keys(N))
     else:
         variant = engine.split("_")[0] if engine.startswith(
             "onesweep") else engine.replace("_rows", "")
