@@ -1,11 +1,15 @@
 """How a configuration calls the program, and how its outputs reach the
 reference.
 
-A configuration file names its entry ("sort" or "split_sort") and the
-arguments the program takes from it (order, backend, strategy); the
-traffic file names the mode ("keys", "pairs", "argsort") and the key bits.
-These are the public entry points users call, on their default paths
-unless the configuration says otherwise.
+A configuration file names its entry ("sort", "split_sort" or
+"distributed_sort") and the arguments the program takes from it (order,
+backend, strategy); the traffic file names the mode ("keys", "pairs",
+"argsort") and the key bits.  These are the public entry points users
+call, on their default paths unless the configuration says otherwise.
+"distributed_sort" is called on every rank of the WORLD group with that
+rank's shard, and returns the program's own dict for the rank (its
+padded, sorted blocks, `count` and `overflow`), which ranks.py hands to
+the reference after the window.
 """
 
 from __future__ import annotations
@@ -51,6 +55,10 @@ def make_call(gstt, config: dict, traffic: dict):
                     bits_to_sort=bits, strategy=strategy)
                 return {"keys": k, "values": v}
             return seg_pairs
+    if entry == "distributed_sort" and mode == "pairs":
+        if config["order"] != "ascending":
+            raise ValueError("the distributed sort is ascending only")
+        return lambda x: gstt.distributed_sort(x.keys, x.values)
     raise ValueError(f"no call for entry {entry!r} in mode {mode!r}")
 
 

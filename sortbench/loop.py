@@ -45,6 +45,47 @@ def _nullspan(_name):
     return contextlib.nullcontext()
 
 
+def p95(lat_ms) -> float:
+    """The 95th percentile of the calls' latencies (the nearest rank)."""
+    return float(np.sort(lat_ms)[max(0, math.ceil(0.95 * len(lat_ms)) - 1)])
+
+
+def end_to_end_metrics(cell: spec.Cell, measured: dict) -> dict:
+    return {m["name"]: {"value": measured[m["name"]], "unit": m["unit"]}
+            for m in cell.end_to_end}
+
+
+def traced_window(prof, cell: spec.Cell, pool: list, warm: int, active: int,
+                  calls: int, kind: str):
+    """(the trace's events, their Window) of a profiler that recorded the
+    calls warm .. warm + active - 1 of `pool`, cycled, on a card named
+    `kind`."""
+    prof.stop()
+    events = trace.events_of(prof)
+    work = spec.work_module(cell.config)
+    mode = cell.traffic["mode"]
+    rec = [pool[j % len(pool)] for j in range(warm, min(calls, warm + active))]
+    return events, trace.reduce(
+        events,
+        bytes_moved=sum(work.bytes_per_call(mode, x.n, x.seg_count)
+                        for x in rec),
+        keys=sum(x.n for x in rec),
+        peak_bytes_per_s=card.PEAK_BYTES_PER_S.get(kind))
+
+
+def layer_metrics(cell: spec.Cell, window: trace.Window,
+                  events: list) -> dict:
+    """The cell's per-layer metrics that find something to read.  The
+    trace's `events` sit beside `window` in this frame, where
+    program_spans looks for them."""
+    metrics = {}
+    for m in cell.per_layer:
+        v = spec.metric_reader(m["name"]).read(window)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    return metrics
+
+
 def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
              device: torch.device, t_start: float, call=None) -> dict:
     """The result line's fields for one run; `call` replaces the program's
@@ -140,37 +181,21 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     metrics = {}
     window = None
     if prof is not None:
-        prof.stop()
-        events = trace.events_of(prof)
+        events, window = traced_window(prof, cell, pool, warm, active, calls,
+                                       dev["kind"])
         del prof
-        work = spec.work_module(cfg)
-        rec = [pool[j % len(pool)]
-               for j in range(warm, min(calls, warm + active))]
-        window = trace.reduce(
-            events,
-            bytes_moved=sum(work.bytes_per_call(traffic["mode"], x.n,
-                                                x.seg_count) for x in rec),
-            keys=sum(x.n for x in rec),
-            peak_bytes_per_s=card.PEAK_BYTES_PER_S.get(dev["kind"]))
         if cuda:
             dev["busy_s"] = window.busy_s
             dev["window_s"] = window.wall_s
-            for m in cell.per_layer:
-                v = spec.metric_reader(m["name"]).read(window)
-                if v is not None:
-                    metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+            metrics = layer_metrics(cell, window, events)
             result["breakdown"] = {"device_ops": window.device_ops,
                                    "idle_gaps": window.idle_gaps}
     elif cuda:
-        measured = {
+        metrics = end_to_end_metrics(cell, {
             "keys_per_s": ok_keys / (end - start),
-            "sort_ms_p95": float(np.sort(lat_ms)[
-                max(0, math.ceil(0.95 * len(lat_ms)) - 1)]),
+            "sort_ms_p95": p95(lat_ms),
             "setup_s": setup_s,
-        }
-        for m in cell.end_to_end:
-            metrics[m["name"]] = {"value": measured[m["name"]],
-                                  "unit": m["unit"]}
+        })
 
     # the check, once the window has closed and its peak is read: each
     # kept call's input and outputs copied to the host, then judged in
@@ -188,12 +213,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     with concurrent.futures.ThreadPoolExecutor(max(1, len(jobs))) as ex:
         judged = list(ex.map(judge, jobs))
     del jobs
-    counts = {"calls_checked": len(judged), "failed_calls": failed}
-    for wrong in judged:
-        for name, v in wrong.items():
-            counts[name] = counts.get(name, 0) + v
-    wrong_calls = sum(any(w.values()) for w in judged)
-    correct, checks = reference.verdict(counts)
+    correct, checks, wrong_calls = reference.tally(judged, failed)
     result.update(correct=correct, failed=failed + wrong_calls,
                   metrics=metrics, device=dev)
     result["card"] = {"before": before, "after": after}

@@ -17,6 +17,17 @@ is needed.
 The control breaks one guarantee each configuration states, that all 32
 key bits are sorted: it orders by the top `sort_bits` = 16 bits, stably, as
 a sort that skips its low digit passes would.
+
+A distributed call (`judge_runs`) is judged in plain torch on whatever
+device holds its runs, in blocks: 2^30 pairs take minutes in numpy on a
+host.  Each rank's valid prefix, joined in rank order, must hold every
+input pair once in the global stable order.  The payload is each
+element's unique global position, so three O(n) checks say so without a
+sort: the (code, payload) pairs strictly increase, each code is the
+code of the input key at its payload's position, and the counts sum to
+the input's length.  A pair out of order, a key that left its payload,
+an element lost or doubled, and equal keys out of input order each
+break one of them.
 """
 
 from __future__ import annotations
@@ -24,13 +35,19 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 CONTROL_SORT_BITS = 16
 
 # Each number compared and its limit.  Every comparison is exact.
 LIMITS = {"calls_checked": ("min", 1), "failed_calls": ("max", 0),
           "keys_wrong": ("max", 0), "values_wrong": ("max", 0),
-          "perm_wrong": ("max", 0)}
+          "perm_wrong": ("max", 0),
+          # a distributed call: the ranks' counts against the input's
+          # length, and the elements the program reports it dropped
+          "count_sum_off": ("max", 0), "overflow": ("max", 0)}
+
+M32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass
@@ -143,6 +160,78 @@ def _bits_from_codes(c: np.ndarray, key_dtype: str) -> np.ndarray:
         return c ^ np.uint32(0x80000000)
     neg = ~(c >> np.uint32(31)).astype(bool)
     return np.where(neg, ~c, c & np.uint32(0x7FFFFFFF))
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """u32 bits (any 4-byte dtype) -> int64 values 0 .. 2^32 - 1."""
+    return t.view(torch.int32).to(torch.int64) & M32
+
+
+def codes_of(bits: torch.Tensor, key_dtype: str) -> torch.Tensor:
+    """`codes` in torch: int64 u32 values -> int64 codes."""
+    if key_dtype == "uint32":
+        return bits
+    if key_dtype == "int32":
+        return bits ^ 0x80000000
+    if key_dtype == "float32":
+        return torch.where(bits >> 31 != 0, bits ^ M32, bits | 0x80000000)
+    raise ValueError(f"unknown key dtype {key_dtype!r}")
+
+
+def judge_runs(codes: torch.Tensor, values: torch.Tensor, counts: list[int],
+               held: list[int], overflow: int, in_keys: torch.Tensor,
+               key_dtype: str, block: int = 1 << 26) -> dict[str, int]:
+    """The numbers wrong in a distributed call.
+
+    codes, values  the ranks' valid prefixes joined in rank order (u32
+                   codes and payload bits, any 4-byte dtype)
+    counts         each rank's `count`; held: the elements its blocks hold
+                   of it (its count cut to the block's length)
+    overflow       the elements the program says it dropped
+    in_keys        the global input's key bits, position p at p; the
+                   payload of the element at p is p"""
+    n = in_keys.shape[0]
+    m = codes.shape[0]
+    in_bits = in_keys.view(torch.int32)   # the card indexes no uint32
+    keys_wrong = values_wrong = 0
+    for a in range(0, m, block):
+        c = _u32(codes[a:a + block + 1])      # one past: the next pair
+        v = _u32(values[a:a + block + 1])
+        own = min(block, m - a)
+        cv, vv = c[:own], v[:own]
+        out = vv >= n
+        want = codes_of(_u32(in_bits[vv.clamp(max=n - 1)]), key_dtype)
+        keys_wrong += int(out.sum()) + int(((want != cv) & ~out).sum())
+        keys_wrong += int((c[:-1] > c[1:]).sum())
+        values_wrong += int(((c[:-1] == c[1:]) & (v[:-1] >= v[1:])).sum())
+    return {"keys_wrong": keys_wrong, "values_wrong": values_wrong,
+            "count_sum_off": abs(sum(counts) - n)
+            + sum(c - h for c, h in zip(counts, held)),
+            "overflow": int(overflow)}
+
+
+def control_order(keys: torch.Tensor, key_dtype: str,
+                  sort_bits: int = CONTROL_SORT_BITS,
+                  block: int = 1 << 26) -> torch.Tensor:
+    """The control of a distributed call: the permutation (int64) that
+    puts the global input's key bits in their stable order by the top
+    `sort_bits` bits of the codes, in plain torch."""
+    top = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
+    for a in range(0, keys.shape[0], block):
+        top[a:a + block] = codes_of(_u32(keys[a:a + block]), key_dtype) >> (
+            32 - sort_bits)
+    return torch.sort(top, stable=True).indices
+
+
+def tally(judged: list[dict[str, int]], failed: int):
+    """(correct, checks, calls with a wrong number) of the judged calls
+    and the calls that failed."""
+    counts = {"calls_checked": len(judged), "failed_calls": failed}
+    for wrong in judged:
+        for name, v in wrong.items():
+            counts[name] = counts.get(name, 0) + v
+    correct, checks = verdict(counts)
+    return correct, checks, sum(any(w.values()) for w in judged)
 
 
 def verdict(counts: dict[str, int]) -> tuple[bool, dict]:

@@ -10,7 +10,10 @@ part of the window.  The last line of standard output is one JSON object:
 `breakdown`, then the card's readings, the run's own numbers, and last
 `checks`, each number compared beside its limit (also the last lines of
 standard error).  Without a CUDA card, or with fewer cards than the cell
-asks for, it exits 2 and prints no result.
+asks for, it exits 2 and prints no result.  A cell on one card runs in
+this process on `cuda:0` (loop.py); a cell on several runs one process a
+card (ranks.py), whose rank 0's line this process prints once every
+rank has ended, or exits 1 with the traceback of a rank that failed.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ if str(_ROOT) not in sys.path:
     sys.path.insert(0, str(_ROOT))
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "gpusorting_tpu"}
+# a run over several cards ends within this many seconds of its start
+RANKS_DEADLINE_S = 340.0
 
 
 def forbidden_modules() -> list[str]:
@@ -53,24 +58,66 @@ def main(argv=None) -> int:
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
 
-    import torch
-
-    from sortbench import loop, spec
+    from sortbench import spec
 
     cell = spec.load_cell(args.workload)
-    if not torch.cuda.is_available():
-        print("sortbench: no CUDA card (torch.cuda.is_available() is "
-              "False); no result", file=sys.stderr)
-        return 2
-    if torch.cuda.device_count() < cell.chips:
-        print(f"sortbench: {cell.name} needs {cell.chips} cards, torch sees "
-              f"{torch.cuda.device_count()}; no result", file=sys.stderr)
+    if cell.chips > 1:
+        return _run_ranks(cell, args)
+
+    import torch
+
+    from sortbench import loop
+
+    missing = _cards_missing(torch, cell)
+    if missing:
+        print(f"sortbench: {missing}; no result", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     result = loop.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                            dev, T_START)
-    bad = forbidden_modules()
+    return _report(result, forbidden_modules())
+
+
+def _cards_missing(torch, cell) -> str | None:
+    if not torch.cuda.is_available():
+        return "no CUDA card (torch.cuda.is_available() is False)"
+    if torch.cuda.device_count() < cell.chips:
+        return (f"{cell.name} needs {cell.chips} cards, torch sees "
+                f"{torch.cuda.device_count()}")
+    return None
+
+
+def _run_ranks(cell, args) -> int:
+    """A cell over several cards: the ranks are spawned before this
+    process imports torch, so their imports run beside its own."""
+    from sortbench import ranks
+
+    steps = {"spawning": time.perf_counter() - T_START}
+    job = (args.seed, args.seconds, bool(args.trace), None)
+    with ranks.Ranks(cell, [job], T_START, T_START + RANKS_DEADLINE_S
+                     - time.perf_counter()) as team:
+        import torch
+        steps["torch_imported"] = time.perf_counter() - T_START
+        missing = _cards_missing(torch, cell)
+        if missing:
+            print(f"sortbench: {missing}; no result", file=sys.stderr)
+            return 2
+        steps["cards_counted"] = time.perf_counter() - T_START
+        try:
+            results, bad = team.wait()
+        except ranks.RankFailure as e:
+            print(f"sortbench: {e}\nsortbench: no result", file=sys.stderr)
+            return 1
+    result = results[0]
+    result["run"]["setup_steps_s"].update(steps)
+    result["run"]["rank_exitcodes"] = [p.exitcode for p in team.procs]
+    return _report(result, bad + forbidden_modules())
+
+
+def _report(result: dict, bad: list[str]) -> int:
+    """Print the run's line, or refuse it where it loaded a forbidden
+    module."""
     if bad:
         print(f"sortbench: the run loaded {', '.join(bad)}; no result",
               file=sys.stderr)

@@ -112,3 +112,26 @@ def test_a_dispatch_span_over_busy_time_leaves_no_idle():
     assert got["dispatch_idle_pct"] == 0.0
     assert got["dispatch_host_ms"] == pytest.approx(10e-3 / 2)
     assert got["host_syncs_per_call"] == 0.0
+
+
+def test_collective_pct_reads_the_union_of_nccl_operations():
+    from sortbench import trace
+    ev = []
+
+    def x(cat, name, ts, dur):
+        ev.append({"ph": "X", "cat": cat, "name": name, "ts": ts,
+                   "dur": dur})
+    x("user_annotation", "call", 0.0, 100)
+    x("user_annotation", "sync", 100.0, 100)
+    x("kernel", "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage)", 10, 40)
+    x("kernel", "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage)", 30, 40)
+    x("kernel", "mask_arrivals", 60, 20)
+    x("kernel", "sort", 120, 30)
+    x("kernel", "ncclDevKernel_AllGather", 250, 10)   # after the window
+    w = trace.reduce(ev, 1, 1, 3.35e12)
+    assert w.busy_s == pytest.approx(100e-6)     # [10, 80) and [120, 150)
+    read = spec.metric_reader("collective_pct").read
+    assert read(w) == pytest.approx(60.0)         # [10, 70) of 100 us
+    quiet = trace.reduce([e for e in ev if "nccl" not in e["name"]], 1, 1,
+                         3.35e12)
+    assert read(quiet) is None

@@ -19,3 +19,8 @@ from sortbench import spec
 def test_bytes_per_call(config, mode, n, segs, want):
     work = spec.work_module({"name": config})
     assert work.bytes_per_call(mode, n, segs) == want
+
+
+def test_a_distributed_calls_bytes_are_a_ranks():
+    work = spec.work_module({"name": "dist_u32_pairs"})
+    assert work.bytes_per_call("pairs", 1 << 28, 0) == 16 << 28

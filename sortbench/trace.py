@@ -10,6 +10,8 @@ CUDA activity, and exports a Chrome trace; this module reads it:
   - busy: the union of device intervals (kernels, copies, memsets) in it
   - kernels: the kernel launches in it
   - device_ops: device seconds by operation name (its first 160 characters)
+  - op_intervals: every device operation in it, (start, end, name), in
+    microseconds, for readers that take the union of some of them
   - idle_gaps: the seconds with no device operation, by what the host was
     doing at each gap's middle: the benchmark span, and the outermost
     torch operator running then where there was one.
@@ -45,6 +47,7 @@ class Window:
     peak_bytes_per_s: float | None
     device_ops: list         # [[name, seconds], ...], largest first
     idle_gaps: list          # [[label, seconds], ...], largest first
+    op_intervals: list = dataclasses.field(default_factory=list)
 
 
 def _merge(intervals):
@@ -122,7 +125,8 @@ def reduce(events: list[dict], bytes_moved: int, keys: int,
         kernels=sum(1 for *_, cat in clipped if cat == "kernel"),
         bytes=bytes_moved, keys=keys, peak_bytes_per_s=peak_bytes_per_s,
         device_ops=[[n, v] for n, v in by_op.most_common(top)],
-        idle_gaps=[[n, v] for n, v in gaps.most_common(top)])
+        idle_gaps=[[n, v] for n, v in gaps.most_common(top)],
+        op_intervals=[(s, e, name) for s, e, name, _ in clipped])
 
 
 def profiler(warmup_calls: int, active_calls: int):
