@@ -33,9 +33,11 @@ picks one from the offsets, read to the host once per call (or once per
                its size there.
 The choice is the span `dispatch.route` (with `dispatch.window_plan`
 inside it where the histogram is built), the route taken the span
-`engine.<name>` above, the offsets' copy `sync.offsets` (utils/trace.py).
-Codes are the biased int32 carriers of `core.codec`; payloads ride as int32
-planes, a 64-bit payload as two (lo, hi).
+`engine.<name>` above, the offsets' copy `sync.offsets` (utils/trace.py);
+the composite marks its branch and steps (`composite.*`, see
+`_composite_multi`).  Codes are the biased int32 carriers of `core.codec`;
+payloads ride as int32 planes, a 64-bit payload as two (lo, hi), split
+and joined in the spans `payload.split` and `payload.join`.
 
 PyTorch runs eagerly and the offsets are always tensors or arrays, never
 traced: the JAX package's tracer branches and its jitted `make_segsort_fn`
@@ -432,17 +434,32 @@ def _composite_multi(seg_offsets, codes, payloads: tuple, seg_count: int,
     order.  When seg_bits + bits_to_sort <= 32 the composite is one u32 key
     (the bits_to_sort lever), which rides the range-exchange engine where
     AUTO routes its size there; otherwise it is the int64 (segment, code)
-    key of `flat_sort.segmented_sort_pairs`.  Returns (codes, payloads)."""
-    n = codes.shape[0]
-    seg_ids = flat_sort.segment_ids_from_offsets(seg_offsets, n)
+    key of `flat_sort.segmented_sort_pairs`.  The branch taken is the span
+    `composite.u32` or `composite.i64`; inside it `composite.build`
+    (segment ids and the composite key), `composite.sort` and, where a
+    permutation is applied, `composite.gather` (the codes and the payload
+    planes read out by it).  Returns (codes, payloads)."""
     seg_bits = _ceil_log2(seg_count) + 1
-    info = config.get_device_info(codes.device)
     if seg_bits + bits_to_sort <= 32:
+        with span("composite.u32"):
+            return _composite_u32(seg_offsets, codes, payloads,
+                                  bits_to_sort)
+    with span("composite.i64"):
+        return _composite_i64(seg_offsets, codes, payloads)
+
+
+def _composite_u32(seg_offsets, codes, payloads: tuple, bits_to_sort: int):
+    """`_composite_multi`'s one-u32-key branch."""
+    n = codes.shape[0]
+    info = config.get_device_info(codes.device)
+    with span("composite.build"):
+        seg_ids = flat_sort.segment_ids_from_offsets(seg_offsets, n)
         ucode = (codes ^ codec.SIGN).to(torch.int64) & _M32
         comp = codec.wrap_int32(((seg_ids << bits_to_sort) | ucode) & _M32
                                 ) ^ codec.SIGN
-        mask = (1 << bits_to_sort) - 1
-        if not payloads:
+    mask = (1 << bits_to_sort) - 1
+    if not payloads:
+        with span("composite.sort"):
             if config.auto_engine(n, info=info) == "rangesweep":
                 return _low_bits(rangesweep.sort_codes_rangesweep(comp),
                                  mask), ()
@@ -450,26 +467,39 @@ def _composite_multi(seg_offsets, codes, payloads: tuple, seg_count: int,
             key = codec.join_wide(codes ^ codec.SIGN, comp)
             sk = flat_sort.sort_all_keys_unstable(key)
             return codec.split_wide(sk)[0] ^ codec.SIGN, ()
-        wide = len(payloads) > 1
-        if config.auto_engine(n, Mode.PAIRS, payload_bits=64 if wide else 32,
-                              info=info) == "rangesweep":
-            r = config.get_routing_parameters(info)
+    wide = len(payloads) > 1
+    if config.auto_engine(n, Mode.PAIRS, payload_bits=64 if wide else 32,
+                          info=info) == "rangesweep":
+        r = config.get_routing_parameters(info)
+        with span("composite.sort"):
             res = rangesweep.sort_pairs_rangesweep_planes(
                 comp, tuple(payloads),
                 seg_elems=(r.rangesweep_seg_elems_pairs_wide if wide
                            else r.rangesweep_seg_elems_pairs))
             return _low_bits(res[0], mask), tuple(res[1:])
+    with span("composite.sort"):
         _, perm = torch.sort(comp, stable=True)
+    with span("composite.gather"):
         return codes[perm], tuple(p[perm] for p in payloads)
-    # (segment - 2^31) in the high half: signed order is (segment, code)
-    key = codec.join_wide(codes ^ codec.SIGN,
-                          codec.wrap_int32(seg_ids - 0x80000000))
+
+
+def _composite_i64(seg_offsets, codes, payloads: tuple):
+    """`_composite_multi`'s int64 (segment, code) branch."""
+    with span("composite.build"):
+        seg_ids = flat_sort.segment_ids_from_offsets(seg_offsets,
+                                                     codes.shape[0])
+        # (segment - 2^31) in the high half: signed order is (segment, code)
+        key = codec.join_wide(codes ^ codec.SIGN,
+                              codec.wrap_int32(seg_ids - 0x80000000))
     if not payloads:
-        sk = flat_sort.sort_all_keys_unstable(key)
-        return codec.split_wide(sk)[0] ^ codec.SIGN, ()
-    sk, perm = torch.sort(key, stable=True)
-    return (codec.split_wide(sk)[0] ^ codec.SIGN,
-            tuple(p[perm] for p in payloads))
+        with span("composite.sort"):
+            sk = flat_sort.sort_all_keys_unstable(key)
+            return codec.split_wide(sk)[0] ^ codec.SIGN, ()
+    with span("composite.sort"):
+        sk, perm = torch.sort(key, stable=True)
+    with span("composite.gather"):
+        return (codec.split_wide(sk)[0] ^ codec.SIGN,
+                tuple(p[perm] for p in payloads))
 
 
 def _interval_mask(starts: np.ndarray, lens: np.ndarray, n: int,
@@ -785,11 +815,18 @@ def split_sort_pairs(
         return codec.decode_biased(sc, kt)
     bits = codec.payload_to_bits(values.contiguous())
     wide = bits.dtype == torch.int64
-    sc, ps = _segmented_sort(seg_offsets, codes,
-                             codec.split_wide(bits) if wide else (bits,),
-                             total_seg_count, total, bits_to_sort, strategy,
-                             plan)
-    sb = codec.join_wide(*ps) if wide else ps[0]
+    if wide:
+        with span("payload.split"):
+            planes = codec.split_wide(bits)
+    else:
+        planes = (bits,)
+    sc, ps = _segmented_sort(seg_offsets, codes, planes, total_seg_count,
+                             total, bits_to_sort, strategy, plan)
+    if wide:
+        with span("payload.join"):
+            sb = codec.join_wide(*ps)
+    else:
+        sb = ps[0]
     return (codec.decode_biased(sc, kt),
             codec.bits_to_payload(sb, values.dtype))
 

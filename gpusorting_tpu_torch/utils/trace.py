@@ -11,6 +11,14 @@ Names (PERF.md §3 says which metric reads each):
   sync.<what>           a readback that blocks the host until the card has
                         finished the work before it
   engine.<route>        the enqueue of one route; its count is the route's
+  composite.<branch>    the segmented composite's branch, `u32` (one u32
+                        key) or `i64` (the int64 key); its count is the
+                        branch's.  Inside it `composite.build` (segment
+                        ids and the key), `composite.sort` and
+                        `composite.gather` (codes and payload planes read
+                        out by the permutation)
+  payload.<step>        a segmented sort's 64-bit payload: `split` into
+                        (lo, hi) int32 planes, `join` back
   build.<source stem>   an `nvcc` build inside this process
   launch.<module>.<fn>  a kernel wrapper's `fn.launches` (`launch_counter`)
 

@@ -6,8 +6,11 @@ emits its `gst.engine.*` span and its `gst.dispatch.*` spans, nested as
 the module says (no dispatch span holds an engine span); `counts()` shows
 one `engine.<route>` a call and `reset()` zeroes every counter; each
 kernel wrapper's `fn.launches` is read by `counts()` as
-`launch.<module>.<fn>`.  CPU only: the readbacks (`sync.*`) open spans
-only for CUDA tensors and are checked on the card.
+`launch.<module>.<fn>`; the segmented composite counts its branch
+(`composite.u32`, `composite.i64`) and its steps once a call, a 64-bit
+payload its split and join, and a keys-only sort none of these.  CPU
+only: the readbacks (`sync.*`) open spans only for CUDA tensors and are
+checked on the card.
 """
 
 from __future__ import annotations
@@ -259,6 +262,65 @@ def test_a_build_counts_only_when_nvcc_runs(tmp_path, monkeypatch):
     _nvcc.build(source)
     _nvcc.build(source)            # the library exists: no nvcc, no count
     assert trace.counts()["build.probe_kernel"] == 1
+    trace.reset()
+
+
+# ---- the segmented composite's branch and steps, the 64-bit payload -------
+
+COMPOSITE_STEPS = ("composite.build", "composite.sort", "composite.gather")
+
+
+def _wide_seg(bits_to_sort, values=True):
+    """A composite-routed (under NO_ROUTE) segmented sort of keys masked to
+    `bits_to_sort` bits with a 64-bit index payload, or keys only."""
+    lens = _random_lens(N * 4, 1000, 8)
+    total = sum(lens)
+    offs = _offsets(lens)
+    keys = (_keys(total).view(torch.int32)
+            & ((1 << bits_to_sort) - 1)).view(torch.uint32)
+    vals = torch.arange(total, dtype=torch.int64).view(torch.uint64)
+    return lambda: gstt.split_sort_pairs(
+        offs, keys, vals if values else None, len(lens), total,
+        bits_to_sort=bits_to_sort)
+
+
+def _marked(counts):
+    return {k: v for k, v in counts.items()
+            if v and k.startswith(("composite.", "payload."))}
+
+
+@pytest.mark.parametrize("bits,branch", [(16, "u32"), (32, "i64")])
+def test_the_composite_counts_its_branch_and_steps_once_a_call(bits, branch):
+    call = _wide_seg(bits)
+    with _caps(**NO_ROUTE):
+        trace.reset()
+        call()
+        assert _marked(trace.counts()) == {
+            "composite." + branch: 1, "payload.split": 1, "payload.join": 1,
+            **dict.fromkeys(COMPOSITE_STEPS, 1)}
+        call()
+        assert set(_marked(trace.counts()).values()) == {2}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            call()
+    spans = {name: (s, e) for name, s, e in _spans(prof)}
+    bs, be = spans["composite." + branch]
+    for step in COMPOSITE_STEPS:
+        assert bs <= spans[step][0] and spans[step][1] <= be
+    es, ee = spans["engine.composite"]
+    assert es <= bs and be <= ee
+    assert spans["payload.split"][1] <= es and ee <= spans["payload.join"][0]
+
+
+def test_keys_only_sorts_move_no_payload_count():
+    trace.reset()
+    gstt.sort(_keys())
+    gstt.sort(_keys(1 << 12), order=gstt.Order.DESCENDING)
+    assert _marked(trace.counts()) == {}
+    with _caps(**NO_ROUTE):
+        _wide_seg(16, values=False)()
+    assert _marked(trace.counts()) == {
+        "composite.u32": 1, "composite.build": 1, "composite.sort": 1}
     trace.reset()
 
 
