@@ -22,10 +22,11 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      the payload == key stability oracle; the relocate launch count shows
      each went through the kernel;
   3. AUTO with no override at 2^28 for keys, pairs, 64-bit pairs and
-     argsort: the route auto_engine picks on the installed row, bit for bit
+     argsort: the route auto_engine picks on the installed row (argsort's
+     off rangesweep is sort_pairs' with a 32-bit payload), bit for bit
      against the flat sort, relocate launched only on a rangesweep route
-     and radix256 (5 launches, the count on the kernels line) only on a
-     radix256 route; then times with CUDA events (utils/timing.py): end to end for AUTO on
+     and radix256 (5 launches of `sort` or `sort_pairs`, the keys' count
+     on the kernels line) only on a radix256 route; then times with CUDA events (utils/timing.py): end to end for AUTO on
      the installed row, AUTO forced onto rangesweep and the flat
      torch.sort route, per phase of the engine, and the relocate kernel
      beside its bound and its plain version, for keys, pairs and argsort;
@@ -208,15 +209,20 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      torch.sort; dryrun_multichip(1), one NCCL rank, all five checks of
      the JAX dry run; dryrun_multichip(4), four gloo ranks sharing the
      card, remote_dma named as refused; each with its seconds;
- 23. the 8-bit-digit radix sort (ops/radix256.py, AUTO's keys-only route
-     on the card's row; `radix256_phase`): its kernels against their plain
-     version, bit for bit, on u32, i32 and f32 keys at 1, 2, 3, around
-     its partition, a ragged 2^20 + 3 (also 4 bytes past a 16-byte line)
-     and 2^28, on uniform, E020, all-equal and single-digit keys, 5
-     launches a sort; AUTO both orders against the flat sort with no
-     readback; then its time at 2^28, the upsweep's and each pass's (a
-     torch.profiler trace) beside their byte bounds, radix16, the flat
-     sort, AUTO, the plain version and `torch.sort(codes).values`.
+ 23. the 8-bit-digit radix sort (ops/radix256.py, AUTO's keys-only and
+     32-bit-payload pairs route on the card's row; `radix256_phase`): its
+     kernels against their plain version, bit for bit, on u32, i32 and f32
+     keys at 1, 2, 3, around its partition, a ragged 2^20 + 3 (also 4
+     bytes past a 16-byte line) and 2^28, on uniform, E020, all-equal and
+     single-digit keys, 5 launches a sort; AUTO both orders against the
+     flat sort with no readback; then its time at 2^28, the upsweep's and
+     each pass's (a torch.profiler trace) beside their byte bounds,
+     radix16, the flat sort, AUTO, the plain version and
+     `torch.sort(codes).values`.  The same for the pairs form with u32,
+     i32 and f32 payloads (NaN patterns among them), also against
+     `torch.sort(stable=True)` and the gather, AUTO's sort_pairs and
+     argsort with no readback, its times beside the flat pairs route and
+     `torch.sort(codes, stable=True)` with the gather.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -290,8 +296,9 @@ def _phase18_rank(rank: int, world: int, n: int, seed: int) -> dict:
 def _kernel_ms(prof, names: tuple, per_call: int) -> list:
     """Device ms of each of the `per_call` kernels of one call, in launch
     order, averaged over the calls a stopped torch.profiler recorded;
-    kernels are counted where their name holds one of `names`.  None where
-    the trace has no such kernels (no device activity recorded)."""
+    kernels are counted where their name holds one of `names`, the first
+    call from the first kernel named by names[0].  None where the trace has
+    no such kernels (no device activity recorded)."""
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -300,9 +307,13 @@ def _kernel_ms(prof, names: tuple, per_call: int) -> list:
             events = json.load(f).get("traceEvents", [])
     finally:
         os.unlink(path)
-    ks = sorted((float(e["ts"]), float(e["dur"])) for e in events
-                if e.get("cat") == "kernel"
+    ks = sorted((float(e["ts"]), float(e["dur"]), e.get("name", ""))
+                for e in events if e.get("cat") == "kernel"
                 and any(m in e.get("name", "") for m in names))
+    # a call starts with a kernel named by names[0]: the trace may lose the
+    # first kernels it sees
+    first = next((i for i, k in enumerate(ks) if names[0] in k[2]), len(ks))
+    ks = ks[first:]
     calls = len(ks) // per_call
     if not calls:
         return None
@@ -310,7 +321,7 @@ def _kernel_ms(prof, names: tuple, per_call: int) -> list:
             / 1e3 for i in range(per_call)]
 
 
-def radix256_phase(dev, emit, n: int = N) -> dict:
+def radix256_phase(dev, emit, n: int = N, pairs: bool = True) -> dict:
     """Phase 23: the 8-bit-digit radix sort (ops/radix256.py,
     csrc/binning256.cu) against its plain version on the card, bit for bit:
     u32, i32 and f32 keys (NaN, +-0, +-inf injected) at 1, 2, 3, around
@@ -321,7 +332,14 @@ def radix256_phase(dev, emit, n: int = N) -> dict:
     under set_sync_debug_mode("error") where the row routes n to it.  Then
     times at n: the sort and each of its 5 kernels (a torch.profiler trace
     of 10 sorts) beside their byte bounds, radix16, the flat sort, AUTO,
-    the plain version and `torch.sort(codes).values`."""
+    the plain version and `torch.sort(codes).values`.
+
+    `pairs` does the same for the pairs form (`sort_pairs`, a u32, i32 or
+    f32 payload with NaN patterns beside each key type), also against the
+    flat route (`torch.sort(stable=True)`, then the gather) and, on AUTO,
+    for sort_pairs and argsort; its times at n beside the flat route and
+    `torch.sort(codes, stable=True)` with the gather.  Returns the keys'
+    times."""
     import torch
 
     import gpusorting_tpu_torch as gstt
@@ -361,26 +379,43 @@ def radix256_phase(dev, emit, n: int = N) -> dict:
             raw[pos] = sp[pos % sp.numel()]
         return x
 
-    part = radix256._library().gst_radix256_partition()
+    def values_of(size, dtype):
+        """distinct payload words, every other one a NaN pattern as f32"""
+        idx = torch.arange(size, dtype=torch.int32, device=dev)
+        return torch.where(idx % 2 == 1, idx | 0x7F800000, idx).view(dtype)
+
+    def off_line(x):        # the same values 4 bytes past a 16-byte line
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:].copy_(x)
+        return buf[1:]
+
+    lib = radix256._library()
+    part = lib.gst_radix256_partition()
+    ppart = lib.gst_radix256_pairs_partition()
+    dtypes = (torch.uint32, torch.int32, torch.float32)
+    sizes = (1, 2, 3, part - 1, part, part + 1, (1 << 20) + 3, n)
+    psizes = (1, 2, 3, ppart - 1, ppart, ppart + 1, (1 << 20) + 3, n)
+
+    def kinds(size):
+        return (("uniform", "E020", "all_equal", "single_digit")
+                if size in (n, (1 << 20) + 3) else ("uniform",))
+
     checked = []
-    for dtype in (torch.uint32, torch.int32, torch.float32):
-        for size in (1, 2, 3, part - 1, part, part + 1, (1 << 20) + 3, n):
-            for kind in (("uniform", "E020", "all_equal", "single_digit")
-                         if size in (n, (1 << 20) + 3) else ("uniform",)):
+    for dtype in dtypes:
+        for size in sizes:
+            for kind in kinds(size):
                 x = keys_of(kind, size, dtype)
                 for off in ((0, 1) if size == (1 << 20) + 3 else (0,)):
-                    if off:      # 4 bytes past a 16-byte line
-                        buf = torch.empty(size + 1, dtype=dtype, device=dev)
-                        buf[1:].copy_(x)
-                        x = buf[1:]
+                    if off:
+                        x = off_line(x)
                     before = radix256.sort.launches
                     got = radix256.sort(x)
                     torch.cuda.synchronize()
                     _require(radix256.sort.launches - before == 5,
                              "radix256: not 5 launches a sort")
                     _require(same(got, radix256.sort_plain(x)),
-                             f"radix256 {dtype} n={size} {kind} off={off} "
-                             "!= its plain version")
+                             f"radix256 {dtype} n={size} {kind} "
+                             f"off={off} != its plain version")
                     _require(same(got, flat_sort.sort_keys(x)),
                              f"radix256 {dtype} n={size} {kind} != the "
                              "flat sort")
@@ -423,8 +458,8 @@ def radix256_phase(dev, emit, n: int = N) -> dict:
     rec["upsweep_ms"] = per and per[0]
     rec["pass_ms"] = per and per[1:]
     for name, fn in (
-            ("radix16_ms", lambda: gstt.sort(x, backend=gstt.Backend.PALLAS,
-                                             variant="radix16")),
+            ("radix16_ms", lambda: gstt.sort(
+                x, backend=gstt.Backend.PALLAS, variant="radix16")),
             ("flat_ms", lambda: gstt.sort(x, backend=gstt.Backend.XLA)),
             ("auto_ms", lambda: gstt.sort(x)),
             ("library_ms", lambda: torch.sort(codes).values),
@@ -438,6 +473,111 @@ def radix256_phase(dev, emit, n: int = N) -> dict:
     del x, codes
     torch.cuda.empty_cache()
     emit(phase="radix256_times", **rec)
+    if not pairs:
+        return rec
+
+    # the pairs form: each key type with each payload type at the small
+    # sizes, and with one payload type (rotating) at 2^20 + 3 and n
+    checked = []
+    for i, dtype in enumerate(dtypes):
+        for size in psizes:
+            big = size in (n, (1 << 20) + 3)
+            for vtype in (dtypes[i],) if big else dtypes:
+                v0 = values_of(size, vtype)
+                for kind in kinds(size):
+                    x, v = keys_of(kind, size, dtype), v0
+                    for off in ((0, 1) if size == (1 << 20) + 3 else (0,)):
+                        if off:
+                            x, v = off_line(x), off_line(v)
+                        before = radix256.sort_pairs.launches
+                        gk, gv = radix256.sort_pairs(x, v)
+                        torch.cuda.synchronize()
+                        _require(radix256.sort_pairs.launches - before == 5,
+                                 "radix256: not 5 launches a pairs sort")
+                        pk, pv = radix256.sort_pairs_plain(x, v)
+                        _require(same(gk, pk) and same(gv, pv),
+                                 f"radix256 pairs {dtype}/{vtype} n={size} "
+                                 f"{kind} off={off} != its plain version")
+                        del pk, pv
+                        fk, fv = flat_sort.sort_pairs(x, v)
+                        _require(same(gk, fk) and same(gv, fv),
+                                 f"radix256 pairs {dtype}/{vtype} n={size} "
+                                 f"{kind} != torch.sort and the gather")
+                        checked.append([str(dtype), str(vtype), size, kind,
+                                        off])
+                        del gk, gv, fk, fv
+                    del x, v
+                del v0
+                torch.cuda.empty_cache()
+    route = gstt.auto_engine(n, gstt.Mode.PAIRS, info=info)
+    x = keys_of("uniform", n, torch.float32)
+    v = values_of(n, torch.uint32)
+    for order in (gstt.Order.ASCENDING, gstt.Order.DESCENDING):
+        for what, call, flat in (
+                ("sort_pairs", lambda: gstt.sort_pairs(x, v, order=order),
+                 lambda: flat_sort.sort_pairs(x, v, order=order)),
+                ("argsort", lambda: gstt.argsort(x, order=order,
+                                                 return_keys=True),
+                 lambda: gstt.argsort(x, order=order, return_keys=True,
+                                      backend=gstt.Backend.XLA))):
+            before = radix256.sort_pairs.launches
+            if route == "radix256":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            _require(all(same(g, w) for g, w in zip(got, flat())),
+                     f"AUTO {what} {order.value} at {n} ({route}) != the "
+                     "flat route")
+            _require((radix256.sort_pairs.launches - before == 5)
+                     == (route == "radix256"),
+                     f"AUTO {what} at {n}: route {route}")
+            del got
+    del x, v
+    emit(phase="radix256_pairs_vs_plain", partition=ppart, checked=checked,
+         auto_route=route, radix256_min_pairs=installed.radix256_min_pairs,
+         bit_exact=True)
+
+    # times at n
+    x = prng.make_test_keys(n, SEED + 26, device=dev)
+    v = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    codes = codec.encode_biased(x)
+    vbits = v.view(torch.int32)
+
+    def library():
+        sc, perm = torch.sort(codes, stable=True)
+        return sc, vbits[perm]
+
+    prec = {"n": n, "partition": ppart, "bound_ms": 16 * n / bw * 1e3,
+            "upsweep_bound_ms": 4 * n / bw * 1e3,
+            "sort_bound_ms": 4 * 16 * n / bw * 1e3}
+    prec["ms"] = med(lambda: radix256.sort_pairs(x, v))
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            radix256.sort_pairs(x, v)
+        torch.cuda.synchronize()
+    per = _kernel_ms(prof, ("upsweep", "binning"), 5)
+    prec["upsweep_ms"] = per and per[0]
+    prec["pass_ms"] = per and per[1:]
+    for name, fn in (
+            ("flat_ms", lambda: gstt.sort_pairs(x, v,
+                                                backend=gstt.Backend.XLA)),
+            ("auto_ms", lambda: gstt.sort_pairs(x, v)),
+            ("library_ms", library),
+            ("keys_ms", lambda: radix256.sort(x)),
+            ("ms_2", lambda: radix256.sort_pairs(x, v))):
+        prec[name] = med(fn)
+    prec["plain_ms"] = med(lambda: radix256.sort_pairs_plain(x, v), iters=1)
+    for kind in ("E020", "all_equal"):
+        y = keys_of(kind, n, seed=SEED + 27)
+        prec[f"ms_{kind}"] = med(lambda: radix256.sort_pairs(y, v))
+        del y
+    del x, v, codes, vbits
+    torch.cuda.empty_cache()
+    emit(phase="radix256_pairs_times", **prec)
     return rec
 
 
@@ -672,13 +812,16 @@ def main() -> int:
              lambda k: gstt.argsort(k, backend=gstt.Backend.XLA),
              {"mode": gstt.Mode.PAIRS, "index_payload": True})):
         route = gstt.auto_engine(N, info=info, **kw)
+        if what == "argsort" and route == "xla":
+            # off rangesweep, argsort runs sort_pairs with its int32 index
+            route = gstt.auto_engine(N, mode=gstt.Mode.PAIRS, info=info)
         keys = prng.make_test_keys(N, SEED + 9, torch.uint32, device=dev)
         before = relocate.relocate.launches
-        radix256.sort.launches = 0
+        radix256.sort.launches = radix256.sort_pairs.launches = 0
         got = auto_fn(keys)
         torch.cuda.synchronize()
         reloc = relocate.relocate.launches - before
-        r256 = radix256.sort.launches
+        r256 = radix256.sort.launches + radix256.sort_pairs.launches
         want = flat_fn(keys)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -719,7 +862,7 @@ def main() -> int:
          row={k: getattr(installed_row, k) for k in (
              "rangesweep_min", "rangesweep_min_pairs",
              "rangesweep_min_pairs_wide", "rangesweep_min_index",
-             "radix256_min", "measured")})
+             "radix256_min", "radix256_min_pairs", "measured")})
     del payload, lo64, hi64
     free()
 
@@ -3295,7 +3438,7 @@ def main() -> int:
                  f"phase 22: dryrun_multichip({ranks}) {dry}")
         emit(phase="dryrun_multichip", seconds=secs, **dry)
 
-    # ---- phase 23: the 8-bit-digit radix sort, AUTO's keys route ---------
+    # ---- phase 23: the 8-bit-digit radix sort, AUTO's keys and pairs -----
     r256 = radix256_phase(dev, emit)
     free()
 

@@ -112,8 +112,8 @@ class Backend(enum.Enum):
     AUTO    — `auto_engine()` picks per size and device: on a CUDA card
               with a routing row, sorts at or above the row's thresholds
               run the range-exchange engine (ops/rangesweep.py) or, keys
-              only, the 8-bit-digit radix sort (ops/radix256.py); all else
-              runs the flat sort.
+              only and pairs with a 32-bit payload, the 8-bit-digit radix
+              sort (ops/radix256.py); all else runs the flat sort.
     """
 
     XLA = "xla"
@@ -357,6 +357,10 @@ class RoutingParameters:
                                   `RADIX256_MAX_N` keys); None disables the
                                   route.  The JAX package has no such route,
                                   so its rows convert to None.
+      radix256_min_pairs        — the same for stable pairs with a 32-bit
+                                  payload (the kernels' pairs form; argsort
+                                  reaches it through `sort_pairs` with its
+                                  int32 index; 64-bit payloads never).
       measured                  — True only for a row measured on its card.
     """
 
@@ -378,6 +382,7 @@ class RoutingParameters:
     segsort_padded_max: int = 131072
     segsort_extract_max_frac: float = 0.5
     radix256_min: int | None = None
+    radix256_min_pairs: int | None = None
     measured: bool = False
 
 
@@ -449,6 +454,18 @@ _ROUTING_TABLE = {
     #   take the host's time a call (0.08-0.33 ms, the radix sort's nearly
     #   flat at 0.09-0.19), so the crossover moves with the host's jitter;
     #   2^11 is the smallest n the radix sort won from in both sweeps.
+    # radix256_min_pairs: 1, the smallest n from which the pairs form wins
+    #   at every size swept: probes/torch_radix256_probe.py --pairs, AUTO's
+    #   sort_pairs on (u32, u32) pairs with the route forced on and off, n =
+    #   1, 16, 256 and 2^10 .. 2^28 at powers of two and halfway, as for
+    #   radix256_min.  Three sweeps of the 512 x 16 partition (two of its
+    #   first build, one of the one installed) had the radix sort ahead at
+    #   all 40 sizes: in the last, 0.172 against 0.203 ms at 1, 0.148
+    #   against 0.151 at 2^10 (the narrowest), 0.116 against 0.208 at 2^16,
+    #   0.813 against 1.519 at 2^24, 2.625 against 6.405 at 2^26, 10.126
+    #   against 25.322 at 2^28.  Below 2^20 both routes take the host's
+    #   time a call (0.10-0.27 ms).  The first build's 512 x 20 partition
+    #   spilled and lost at 6 sizes below 786432.
     # segsort_extract_max_frac: 0.0, so the multi-class route never runs:
     #   the probe at the picks above, all three modes summed, 116.601 ms at
     #   0.0 (and 0.1, 0.25: the same routes) against 175.506 at 0.5 and
@@ -471,6 +488,7 @@ _ROUTING_TABLE = {
                               segsort_padded_max=131072,
                               segsort_extract_max_frac=0.0,
                               radix256_min=1 << 11,
+                              radix256_min_pairs=1,
                               measured=True),
 }
 
@@ -522,12 +540,14 @@ def auto_engine(n: int, mode: Mode = Mode.KEYS_ONLY,
     index_payload=True is argsort (payload == index, 2 planes), routed by
     `rangesweep_min_index`.  Keys-only sorts the JAX rules leave on the flat
     sort go to "radix256" from the row's `radix256_min` (a route the JAX
-    package does not have) up to `RADIX256_MAX_N`.
+    package does not have) up to `RADIX256_MAX_N`, and pairs with a 32-bit
+    payload from its `radix256_min_pairs`.
     """
     inf = info or get_device_info()
     if inf.platform != "cuda":
         return "xla"
     r = get_routing_parameters(inf)
+    k = None
     if mode == Mode.PAIRS:
         if index_payload:
             m = r.rangesweep_min_index
@@ -539,12 +559,12 @@ def auto_engine(n: int, mode: Mode = Mode.KEYS_ONLY,
             if (mn is not None and n >= mn and n & (n - 1)
                     and (m is None or n < m)):
                 return "rangesweep"
+            k = r.radix256_min_pairs
     else:
         m = r.rangesweep_min
         k = r.radix256_min
-        if (k is not None and k <= n <= RADIX256_MAX_N
-                and (m is None or n < m)):
-            return "radix256"
+    if k is not None and k <= n <= RADIX256_MAX_N and (m is None or n < m):
+        return "radix256"
     return "rangesweep" if (m is not None and n >= m) else "xla"
 
 

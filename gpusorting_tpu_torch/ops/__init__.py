@@ -5,9 +5,9 @@ the device of the tensor it is given.  `backend=AUTO` asks
 `core.config.auto_engine` for that device and size: on a CUDA card with a
 routing row, sorts at or above the row's thresholds run the range-exchange
 engine (ops/rangesweep.py, whose exchange is the hand-written relocate
-kernel) or, keys only, the 8-bit-digit radix sort (ops/radix256.py, its
-upsweep and four passes hand-written kernels); everything else runs the
-flat `torch.sort` (ops/flat_sort.py).
+kernel) or, keys only and pairs with a 32-bit payload, the 8-bit-digit
+radix sort (ops/radix256.py, its upsweep and four passes hand-written
+kernels); everything else runs the flat `torch.sort` (ops/flat_sort.py).
 `backend=PALLAS` runs the engine family named by `variant=` (ops/radix.py):
 "onesweep" (the default) and "forward_sweep" the bitonic network, whose
 in-tile stages and above-tile hyper trips are hand-written kernels;
@@ -179,7 +179,8 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
                tile_rows: int | None = None):
     """Stable sort of (keys, payload) pairs; the payload is moved by its bit
     pattern.  A 64-bit payload (int64, uint64 or float64) rides as lo/hi
-    int32 planes and routes by its own threshold."""
+    int32 planes and routes by its own threshold; a 32-bit one may take the
+    8-bit-digit radix sort's pairs form on AUTO."""
     _check_lengths(keys, values)
     if backend == Backend.PALLAS:
         with span("engine.pallas." + variant):
@@ -187,8 +188,13 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor,
                                     variant=variant, tile_rows=tile_rows)
     bits = codec.payload_to_bits(values)
     pbits = 64 if bits.dtype == torch.int64 else 32
-    if _route(keys, backend, Mode.PAIRS,
-              payload_bits=pbits) == "rangesweep":
+    route = _route(keys, backend, Mode.PAIRS, payload_bits=pbits)
+    if route == "radix256":
+        with span("engine.radix256"):
+            sk, sb = radix256.sort_pairs(keys, bits)
+            return (_flip(sk.view(torch.int32), order).view(keys.dtype),
+                    codec.bits_to_payload(_flip(sb, order), values.dtype))
+    if route == "rangesweep":
         with span("engine.rangesweep"):
             sc, sb = rangesweep.sort_pairs_rangesweep(
                 codec.encode_biased(keys), bits)

@@ -140,13 +140,16 @@ def test_flagship_row_routes_rangesweep(cuda):
     """The card's measured row routes the flagship size: the flat sort
     beat rangesweep at 2^28 and 2^29 in every mode, so AUTO never takes
     rangesweep there (it runs only under an override); keys-only sorts
-    take the 8-bit-digit radix sort."""
+    take the 8-bit-digit radix sort, and so do pairs with a 32-bit
+    payload."""
     info = config.get_device_info(cuda)
     if info.generation != "h100":
         pytest.skip(f"no routing row for {info.device_kind}")
     assert config.get_routing_parameters(info).measured is True
     assert config.auto_engine(1 << 28, info=info) == "radix256"
     assert config.auto_engine((1 << 28) - 1, info=info) == "radix256"
+    assert config.auto_engine(1 << 28, config.Mode.PAIRS, payload_bits=32,
+                              info=info) == "radix256"
 
 
 # ---- the radix kernels (Upsweep, scan, downsweep) and the PALLAS engines ----
@@ -1730,3 +1733,162 @@ def test_radix256_route_reads_nothing_back(cuda):
         assert after.get("engine.flat", 0) == spans.get("engine.flat", 0)
         want = flat_sort.sort_keys(x, order=order)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# ---- radix256's pairs form and its epochs ----------------------------------
+
+def _radix256_payload(n, dtype, dev):
+    """n distinct 32-bit payload words, half of them NaN patterns as f32."""
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    return torch.where(idx % 2 == 1, idx | 0x7F800000, idx).view(dtype)
+
+
+def _same(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("vtype", [torch.uint32, torch.int32, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32])
+@pytest.mark.parametrize("n", [1 << 26, 1 << 20, (1 << 20) + 3, 8195, 7681,
+                               1])
+def test_radix256_pairs_kernel_matches_plain(cuda, dtype, vtype, n):
+    """The pairs kernels against their plain version and against the flat
+    route (torch.sort(stable=True), then the gather), bit for bit, 5
+    launches a sort."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    x = _radix256_keys("uniform", n, dtype, cuda)
+    v = _radix256_payload(n, vtype, cuda)
+    before = radix256.sort_pairs.launches
+    gk, gv = radix256.sort_pairs(x, v)
+    torch.cuda.synchronize()
+    assert radix256.sort_pairs.launches == before + 5
+    pk, pv = radix256.sort_pairs_plain(x, v)
+    assert _same(gk, pk) and _same(gv, pv)
+    fk, fv = flat_sort.sort_pairs(x, v)
+    assert _same(gk, fk) and _same(gv, fv)
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "single_digit"])
+@pytest.mark.parametrize("n", [1 << 26, (1 << 20) + 3])
+def test_radix256_pairs_one_digit_passes(cuda, kind, n):
+    """All-equal keys (the payloads must keep their input order) and keys
+    whose passes 1-3 see one digit, also from inputs 4 bytes past a
+    16-byte line."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    x = _radix256_keys(kind, n, torch.uint32, cuda)
+    v = _radix256_payload(n, torch.float32, cuda)
+    kbuf = torch.empty(n + 1, dtype=torch.uint32, device=cuda)
+    vbuf = torch.empty(n + 1, dtype=torch.float32, device=cuda)
+    kbuf[1:].copy_(x)
+    vbuf[1:].copy_(v)
+    for keys, vals in ((x, v), (kbuf[1:], vbuf[1:])):
+        gk, gv = radix256.sort_pairs(keys, vals)
+        fk, fv = flat_sort.sort_pairs(keys, vals)
+        assert _same(gk, fk) and _same(gv, fv)
+    if kind == "all_equal":
+        assert _same(gv, v)
+
+
+def test_radix256_pairs_refused_capture_leaves_its_stream_usable(cuda):
+    """radix256.sort_pairs raises under CUDA-graph capture before it
+    allocates the stream's counts buffer, and the first eager sort on that
+    stream afterwards is still bit-exact."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    n = (1 << 20) + 3
+    x = _radix256_keys("uniform", n, torch.uint32, cuda)
+    v = _radix256_payload(n, torch.int32, cuda)
+    fk, fv = flat_sort.sort_pairs(x, v)
+    radix256.sort_pairs(x, v)     # built and run once outside capture
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    key = (x.device.index, side.cuda_stream)
+    radix256._COUNTS.pop(key, None)   # the stream's first radix256 call
+    before = radix256.sort_pairs.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            with pytest.raises(RuntimeError, match="CUDA graph"):
+                radix256.sort_pairs(x, v)
+        finally:
+            graph.capture_end()
+    assert radix256.sort_pairs.launches == before
+    assert key not in radix256._COUNTS
+    with torch.cuda.stream(side):
+        gk, gv = radix256.sort_pairs(x, v)
+    side.synchronize()
+    assert _same(gk, fk) and _same(gv, fv)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+
+
+def test_radix256_pairs_route_reads_nothing_back(cuda):
+    """AUTO's pairs route on the card's row, sort_pairs with a 32-bit
+    payload and argsort (its int32 index): one radix256 pairs sort of 5
+    launches, one `engine.radix256` span and no readback
+    (set_sync_debug_mode("error") raises on one) a call, both orders equal
+    to the flat route."""
+    from gpusorting_tpu_torch.ops import radix256
+    from gpusorting_tpu_torch.utils import trace
+
+    info = config.get_device_info(cuda)
+    if info.generation != "h100":
+        pytest.skip(f"no routing row for {info.device_kind}")
+    n = 1 << 24
+    assert config.auto_engine(n, config.Mode.PAIRS, info=info) == "radix256"
+    x = _radix256_keys("uniform", n, torch.float32, cuda)
+    v = _radix256_payload(n, torch.uint32, cuda)
+    for order in (gstt.Order.ASCENDING, gstt.Order.DESCENDING):
+        for call, flat in (
+                (lambda: gstt.sort_pairs(x, v, order=order),
+                 lambda: flat_sort.sort_pairs(x, v, order=order)),
+                (lambda: gstt.argsort(x, order=order, return_keys=True),
+                 lambda: gstt.argsort(x, order=order, return_keys=True,
+                                      backend=gstt.Backend.XLA))):
+            before, spans = radix256.sort_pairs.launches, trace.counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            after = trace.counts()
+            assert radix256.sort_pairs.launches == before + 5
+            assert after["engine.radix256"] == spans.get(
+                "engine.radix256", 0) + 1
+            assert after.get("engine.flat", 0) == spans.get("engine.flat", 0)
+            want = flat()
+            assert all(_same(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_radix256_across_the_epoch_wrap(cuda, k):
+    """The stream's epoch counter set to _SCAN_EPOCHS - k, so that the four
+    epochs of the first sort after it wrap (the scratch is zeroed and
+    counting starts again at 1) after k of them: 2^20 + 3 keys, and pairs,
+    each sorted twice, equal to their plain versions."""
+    from gpusorting_tpu_torch.ops import radix256
+
+    n = (1 << 20) + 3
+    x = _radix256_keys("uniform", n, torch.int32, cuda)
+    v = _radix256_payload(n, torch.float32, cuda)
+    pk = radix256.sort_plain(x)
+    ppk, ppv = radix256.sort_pairs_plain(x, v)
+    radix256.sort(x)                  # the stream's scratch is made
+    torch.cuda.synchronize()
+    key = (x.device.index, torch.cuda.current_stream().cuda_stream)
+    for sort_pairs in (False, True):
+        kernels._SCAN_SCRATCH[key][1] = kernels._SCAN_EPOCHS - k
+        for _ in range(2):
+            if sort_pairs:
+                gk, gv = radix256.sort_pairs(x, v)
+                assert _same(gk, ppk) and _same(gv, ppv)
+            else:
+                assert _same(radix256.sort(x), pk)
+        # the wrap came after k draws: the rest of the eight count from 1
+        assert kernels._SCAN_SCRATCH[key][1] == 8 - k
+

@@ -145,12 +145,18 @@ _H100 = config.DeviceInfo("cuda", "NVIDIA H100 80GB HBM3", "h100", 1,
 
 
 def test_auto_engine_at_and_around_radix256_min():
-    m = config.get_routing_parameters(_H100).radix256_min
-    assert m is not None
+    """Keys take radix256 from `radix256_min`; pairs with a 32-bit payload
+    from their own `radix256_min_pairs`; 64-bit payloads and argsort's
+    index never."""
+    row = config.get_routing_parameters(_H100)
+    m = row.radix256_min
+    assert m is not None and row.radix256_min_pairs is not None
     K, P = config.Mode.KEYS_ONLY, config.Mode.PAIRS
     for n in (m, m + 1, 3 * m, 1 << 29, config.RADIX256_MAX_N):
         assert config.auto_engine(n, K, info=_H100) == "radix256", n
-        for kw in ({}, {"payload_bits": 64}, {"index_payload": True}):
+        assert config.auto_engine(n, P, info=_H100) == (
+            "radix256" if n >= row.radix256_min_pairs else "xla"), n
+        for kw in ({"payload_bits": 64}, {"index_payload": True}):
             assert config.auto_engine(n, P, info=_H100, **kw) == "xla"
     assert config.auto_engine(m - 1, K, info=_H100) == "xla"
     assert config.auto_engine(config.RADIX256_MAX_N + 1, K,

@@ -285,7 +285,7 @@ _H100_ROUTING = {
     "window_max_keys": 0, "window_max_fused": 0, "window_max_pairs": 0,
     "segsort_bulk_max": 4096, "segsort_padded_max": 131072,
     "segsort_extract_max_frac": 0.0, "radix256_min": 1 << 11,
-    "measured": True,
+    "radix256_min_pairs": 1, "measured": True,
 }
 
 
@@ -293,9 +293,9 @@ def test_h100_rows_hold_their_measured_fields():
     """Every field of both "h100" rows at the value its card run installed,
     and AUTO's route on the card at the swept sizes (2^28, 2^29), one
     below each and a non-power of two between them, in all four modes:
-    keys take the 8-bit-digit radix sort from its measured threshold (and
-    the flat sort just below it); pairs, 64-bit pairs and argsort the flat
-    sort everywhere."""
+    keys and pairs with a 32-bit payload take the 8-bit-digit radix sort
+    from their measured thresholds (and the flat sort just below them);
+    64-bit pairs and argsort's index the flat sort everywhere."""
     h100 = dataclasses.replace(_CUDA_INFO, generation="h100")
     for mode, want in _H100_TUNING.items():
         assert dataclasses.asdict(config.get_tuning_parameters(
@@ -304,12 +304,17 @@ def test_h100_rows_hold_their_measured_fields():
         _H100_ROUTING)
     P = config.Mode.PAIRS
     m = _H100_ROUTING["radix256_min"]
-    for n in (1 << 28, (1 << 28) - 1, 3 << 27, 1 << 29, (1 << 29) - 1, m):
-        assert config.auto_engine(n, info=h100) == "radix256", n
-        for kw in ({"mode": P}, {"mode": P, "payload_bits": 64},
+    mp = _H100_ROUTING["radix256_min_pairs"]
+    for n in (1 << 28, (1 << 28) - 1, 3 << 27, 1 << 29, (1 << 29) - 1, m,
+              mp):
+        assert config.auto_engine(n, info=h100) == (
+            "radix256" if n >= m else "xla"), n
+        assert config.auto_engine(n, mode=P, info=h100) == "radix256", n
+        for kw in ({"mode": P, "payload_bits": 64},
                    {"mode": P, "index_payload": True}):
             assert config.auto_engine(n, info=h100, **kw) == "xla", (n, kw)
     assert config.auto_engine(m - 1, info=h100) == "xla"
+    assert config.auto_engine(mp - 1, mode=P, info=h100) == "xla"
 
 
 def test_auto_engine_agrees_with_jax_on_its_rows():

@@ -335,6 +335,7 @@ LAUNCH_COUNTERS = [
     ("mergesweep", "hyper_stage"), ("stitch", "compact_ops"),
     ("stitch", "expand_ops"), ("relocate", "relocate"),
     ("remote_exchange", "mask_arrivals"), ("radix256", "sort"),
+    ("radix256", "sort_pairs"),
 ]
 _PACKAGE = {"remote_exchange": "gpusorting_tpu_torch.parallel"}
 
@@ -367,7 +368,8 @@ def test_a_launch_counter_reads_its_wrapper(module, fn):
 
 @pytest.mark.parametrize("engine", [
     "radix16", "device_radix", "device_radix_rows", "onesweep",
-    "onesweep_global_stages", "split", "rangesweep", "radix256"])
+    "onesweep_global_stages", "split", "rangesweep", "radix256",
+    "radix256_pairs"])
 def test_plain_paths_agree_with_the_counters(engine, monkeypatch):
     """The engines' plain paths on the CPU launch nothing: every launch
     counter in counts() agrees with its wrapper's `fn.launches` after a
@@ -385,6 +387,9 @@ def test_plain_paths_agree_with_the_counters(engine, monkeypatch):
     elif engine == "radix256":
         monkeypatch.setattr(ops, "auto_engine", lambda *a, **k: "radix256")
         gstt.sort(_keys(N))
+    elif engine == "radix256_pairs":
+        monkeypatch.setattr(ops, "auto_engine", lambda *a, **k: "radix256")
+        gstt.sort_pairs(_keys(N), _keys(N, seed=2))
     else:
         variant = engine.split("_")[0] if engine.startswith(
             "onesweep") else engine.replace("_rows", "")
