@@ -344,7 +344,7 @@ def radix256_phase(dev, emit, n: int = N, pairs: bool = True) -> dict:
 
     import gpusorting_tpu_torch as gstt
     from gpusorting_tpu_torch.core import codec, prng
-    from gpusorting_tpu_torch.ops import flat_sort, radix256
+    from gpusorting_tpu_torch.ops import _nvcc, flat_sort, radix256
     from gpusorting_tpu_torch.utils import timing
 
     info = gstt.get_device_info(dev)
@@ -389,7 +389,7 @@ def radix256_phase(dev, emit, n: int = N, pairs: bool = True) -> dict:
         buf[1:].copy_(x)
         return buf[1:]
 
-    lib = radix256._library()
+    lib = _nvcc.load(radix256.SOURCE)
     part = lib.gst_radix256_partition()
     ppart = lib.gst_radix256_pairs_partition()
     dtypes = (torch.uint32, torch.int32, torch.float32)
@@ -1261,7 +1261,7 @@ def main() -> int:
                  bit_exact=True)
             del planes
 
-    binning_part = radix16._library().gst_binning_partition()
+    binning_part = _nvcc.load(radix16.SOURCE).gst_binning_partition()
     idx = torch.arange(N, dtype=torch.int32, device=dev)
     for name, entropy, equal in (("uniform", gstt.EntropyPreset.E100, False),
                                  ("E020", gstt.EntropyPreset.E020, False),

@@ -5,8 +5,9 @@ one with `nvcc` for sm_90a into a shared library under `_build/` beside
 the package, named by a hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an unchanged
 source is compiled once; `build_all` starts one `nvcc` per source at once.
-`load` returns the library as a `ctypes.CDLL`; the caller declares its
-functions' argument types.
+`load` returns the library as a `ctypes.CDLL` with every `gst_*` entry
+declared: `signatures` reads each entry's `extern "C"` prototype from the
+source itself, so the prototype is the one declaration of the interface.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -81,10 +83,63 @@ def build_all(sources) -> dict:
         return {s: f.result() for s, f in futures.items()}
 
 
+# The C parameter types of the entries' prototypes, as ctypes types.
+_CTYPES = {
+    "const void*": ctypes.c_void_p,
+    "void*": ctypes.c_void_p,
+    "long long": ctypes.c_longlong,
+    "long long*": ctypes.POINTER(ctypes.c_longlong),
+    "int": ctypes.c_int,
+    "int*": ctypes.POINTER(ctypes.c_int),
+    "unsigned": ctypes.c_uint,
+}
+_COMMENT = re.compile(r"//[^\n]*|/\*.*?\*/", re.S)
+_PROTOTYPE = re.compile(r'extern\s+"C"\s+([\w\s*]+?)\s*\b(gst_\w+)\s*'
+                        r"\(([^)]*)\)")
+
+
+def _ctype(source: pathlib.Path, name: str, param: str):
+    """The ctypes type of one parameter of `name`, named or not."""
+    words = param.replace("*", " * ").split()
+    for ctype in (words, words[:-1]):
+        key = " ".join(ctype).replace(" *", "*")
+        if key in _CTYPES:
+            return _CTYPES[key]
+    raise ValueError(f"{source.name}: {name} has a parameter "
+                     f"{param.strip()!r} of a type with no ctypes map")
+
+
+def signatures(source: pathlib.Path) -> dict:
+    """{name: [ctypes types of its parameters]} of every `extern "C"`
+    `gst_*` entry of `source`, read from its prototype; raises ValueError
+    for a return type other than int or a parameter type with no map."""
+    text = _COMMENT.sub(" ", source.read_text())
+    sigs = {}
+    for ret, name, params in _PROTOTYPE.findall(text):
+        if " ".join(ret.split()) != "int":
+            raise ValueError(f"{source.name}: {name} returns "
+                             f"{' '.join(ret.split())!r}, not int")
+        params = params.strip()
+        sigs[name] = [] if params in ("", "void") else [
+            _ctype(source, name, p) for p in params.split(",")]
+    return sigs
+
+
+def declare(lib, source: pathlib.Path):
+    """Set `argtypes` and an int `restype` on each `gst_*` entry of
+    `source` in `lib` (the library built from it); returns `lib`."""
+    for name, argtypes in signatures(source).items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load(source: pathlib.Path) -> ctypes.CDLL:
-    """The built library of `source`, loaded once per process."""
-    return ctypes.CDLL(str(build(source)))
+    """The built library of `source`, its entries declared, loaded once per
+    process."""
+    return declare(ctypes.CDLL(str(build(source))), source)
 
 
 def check(op: str, name: str, t: torch.Tensor, shape: tuple,

@@ -38,7 +38,6 @@ switch off, (L - t)(L - t + 1) / 2 `global_stage` in their place.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -218,20 +217,6 @@ def run_table(sched) -> np.ndarray:
     return np.array(rows, np.int32).reshape(-1, 4)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    lib.gst_local_stages.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.gst_local_stages.restype = ctypes.c_int
-    lib.gst_global_stage.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 3 + [
-        ctypes.c_void_p]
-    lib.gst_global_stage.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=256)
 def _device_schedule(dev: torch.device, tile_elems: int,
                      sched_bytes: bytes) -> tuple:
@@ -279,7 +264,7 @@ def local_stages(planes, sched: torch.Tensor, num_keys: int,
         dev, tile_elems, sched.cpu().contiguous().numpy().tobytes())
     outs = [torch.empty_like(p) for p in planes]
     spare = [0] * (MAX_OPS - len(planes))
-    _nvcc.launch("local_stages", _library().gst_local_stages,
+    _nvcc.launch("local_stages", _nvcc.load(SOURCE).gst_local_stages,
                  *[p.data_ptr() for p in planes], *spare,
                  *[o.data_ptr() for o in outs], *spare,
                  table.data_ptr() + 16 * num_runs, num_stages,
@@ -331,7 +316,7 @@ def global_stage(planes, j: int, k: int, num_keys: int,
         raise ValueError(f"global_stage: {n} elements are not a power of "
                          f"two up to {MAX_N}")
     spare = [0] * (MAX_OPS - len(planes))
-    _nvcc.launch("global_stage", _library().gst_global_stage,
+    _nvcc.launch("global_stage", _nvcc.load(SOURCE).gst_global_stage,
                  *[p.data_ptr() for p in planes], *spare, len(planes),
                  num_keys, n, j, k, device=dev)
     global_stage.launches += 1

@@ -24,9 +24,6 @@ CPU tensor; `fn.launches` counts the kernel launches, which
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..core import codec
@@ -75,16 +72,6 @@ def global_histogram_plain(codes: torch.Tensor,
     return counts
 
 
-@functools.cache
-def _global_hist_library() -> ctypes.CDLL:
-    lib = _nvcc.load(GLOBAL_HIST_SOURCE)
-    fn = lib.gst_global_hist
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 @launch_counter
 def global_histogram(codes: torch.Tensor, passes: int = 4) -> torch.Tensor:
     """(passes, 256) int32 counts of the 8-bit digits 0..passes-1 of 1-D
@@ -109,7 +96,8 @@ def global_histogram(codes: torch.Tensor, passes: int = 4) -> torch.Tensor:
     if n >= 1 << 31:
         raise ValueError(f"global_histogram: {n} codes exceed int32 counts")
     out = torch.empty((passes, 256), dtype=torch.int32, device=dev)
-    _nvcc.launch("global_histogram", _global_hist_library().gst_global_hist,
+    _nvcc.launch("global_histogram",
+                 _nvcc.load(GLOBAL_HIST_SOURCE).gst_global_hist,
                  codes.data_ptr(), n, passes, out.data_ptr(), device=dev)
     global_histogram.launches += 1
     return out
@@ -129,16 +117,6 @@ def tile_histogram4_plain(codes2d: torch.Tensor, shift: int,
                          device=codes2d.device)
     counts.index_add_(0, key, torch.ones_like(key, dtype=torch.int32))
     return counts.view(num_tiles, NBUCKETS)
-
-
-@functools.cache
-def _hist_library() -> ctypes.CDLL:
-    lib = _nvcc.load(HIST_SOURCE)
-    fn = lib.gst_tile_hist4
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 @launch_counter
@@ -163,7 +141,7 @@ def tile_histogram4(codes2d: torch.Tensor, shift: int,
     num_tiles = rows // tile_rows
     _nvcc.check("tile_histogram4", "codes2d", codes2d, (rows, LANES), dev)
     out = torch.empty((num_tiles, NBUCKETS), dtype=torch.int32, device=dev)
-    _nvcc.launch("tile_histogram4", _hist_library().gst_tile_hist4,
+    _nvcc.launch("tile_histogram4", _nvcc.load(HIST_SOURCE).gst_tile_hist4,
                  codes2d.data_ptr(), out.data_ptr(), num_tiles,
                  tile_rows * LANES, shift, device=dev)
     tile_histogram4.launches += 1
@@ -180,28 +158,20 @@ def exclusive_scan_plain(values: torch.Tensor) -> torch.Tensor:
     return codec.wrap_int32(inclusive - values.to(torch.int64))
 
 
-@functools.cache
-def _scan_library() -> ctypes.CDLL:
-    lib = _nvcc.load(SCAN_SOURCE)
-    fn = lib.gst_exclusive_scan
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p,
-                                           ctypes.c_longlong, ctypes.c_uint,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 # The chained scans' scratch, one per (device, stream): [buffer, epoch].
 # Every chained scan uses it: `exclusive_scan` (one status word a tile),
-# `radix16.binning_pass` (16 a partition) and `stitch.compact_ops` and
-# `stitch.expand_ops` (one a tile).  The buffer is an 8-byte ticket and the
-# 64-bit status words, zeroed when allocated; each call on the stream, of
-# any of these kernels, takes the next epoch, so the words an earlier
-# call left never read as this call's, and the buffer is zeroed again only
-# when the 30-bit epoch wraps.  Calls on one stream run in order, so they
-# share it; calls on two streams never do.  A CUDA graph would replay the
-# epoch it captured, and the status words its last replay left would read
-# as ready, so no call takes the scratch under capture.
+# `radix16.binning_pass` (16 a partition), `stitch.compact_ops` and
+# `stitch.expand_ops` (one a tile) and `radix256.sort`/`sort_pairs` (256 a
+# partition).  A radix256 call draws it four times, an epoch for each of its
+# passes, and gets one buffer back: every draw asks for the same words, and a
+# wrap zeroes the buffer in place.  The buffer is an 8-byte ticket and the
+# 64-bit status words, zeroed when allocated; each call on the stream, of any
+# of these kernels, takes the next epoch, so the words an earlier call left
+# never read as this call's, and the buffer is zeroed again only when the
+# 30-bit epoch wraps.  Calls on one stream run in order, so they share it;
+# calls on two streams never do.  A CUDA graph would replay the epoch it
+# captured, and the status words its last replay left would read as ready, so
+# no call takes the scratch under capture.
 _SCAN_SCRATCH: dict = {}
 _SCAN_EPOCHS = (1 << 30) - 1
 
@@ -252,7 +222,7 @@ def exclusive_scan(values: torch.Tensor) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch, epoch = _scan_scratch(dev, stream, -(-n // SCAN_TILE))
-    _nvcc.launch("exclusive_scan", _scan_library().gst_exclusive_scan,
+    _nvcc.launch("exclusive_scan", _nvcc.load(SCAN_SOURCE).gst_exclusive_scan,
                  values.data_ptr(), out.data_ptr(), n, scratch.data_ptr(),
                  scratch.numel() - 1, epoch, device=dev, stream=stream)
     exclusive_scan.launches += 1

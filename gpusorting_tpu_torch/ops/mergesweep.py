@@ -39,7 +39,6 @@ planes, 2^14 elements, 11 stages a trip) 17.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import os
 
@@ -84,16 +83,6 @@ def _check_hyper(planes, num_keys, k, j_hi, j_lo):
             or j_hi < j_lo or k <= j_hi):
         raise ValueError(f"hyper_stage: strides {j_hi}..{j_lo} are not a "
                          f"run of pass k={k}")
-
-
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    lib.gst_hyper_stage.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int,
-                                                       ctypes.c_void_p]
-    lib.gst_hyper_stage.restype = ctypes.c_int
-    return lib
 
 
 def _check_cuda(op, planes):
@@ -153,7 +142,7 @@ def merge_tail(planes, k: int, tile_rows: int, num_keys: int) -> list:
     tile_elems = tile_rows * LANES
     table, num_stages, num_runs = _tail_table(dev, k, tile_elems)
     ptrs = _spare(planes)
-    _nvcc.launch("merge_tail", bitonic._library().gst_local_stages,
+    _nvcc.launch("merge_tail", _nvcc.load(bitonic.SOURCE).gst_local_stages,
                  *ptrs, *ptrs, table.data_ptr() + 16 * num_runs, num_stages,
                  table.data_ptr(), num_runs, len(planes), num_keys,
                  planes[0].shape[0] // tile_rows, tile_elems, device=dev)
@@ -206,9 +195,9 @@ def hyper_stage(planes, k: int, j_hi: int, j_lo: int, num_keys: int,
                          f"plane is not {4 * items} to "
                          f"{4 * items * HYPER_MAX_THREADS} ({items} int4 a "
                          f"thread, 1 to {HYPER_MAX_THREADS} threads)")
-    _nvcc.launch("hyper_stage", _library().gst_hyper_stage, *_spare(planes),
-                 len(planes), num_keys, planes[0].numel(), k, j_hi, j_lo,
-                 cols, device=dev)
+    _nvcc.launch("hyper_stage", _nvcc.load(SOURCE).gst_hyper_stage,
+                 *_spare(planes), len(planes), num_keys, planes[0].numel(),
+                 k, j_hi, j_lo, cols, device=dev)
     hyper_stage.launches += 1
     return planes
 

@@ -45,9 +45,6 @@ be any number of rows (JAX wants a multiple of 128, a TPU placement rule).
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..utils.trace import launch_counter, readback
@@ -125,19 +122,6 @@ def binning_pass_plain(planes, cursors: torch.Tensor, shift: int,
     return out, (cursors.to(torch.int64) + counts).to(torch.int32)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.gst_binning
-    fn.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.gst_binning_partition.argtypes = []
-    lib.gst_binning_partition.restype = ctypes.c_int
-    return lib
-
-
 @launch_counter
 def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
                  out=None, digits=None):
@@ -187,7 +171,7 @@ def binning_pass(planes, cursors: torch.Tensor, shift: int, tile_rows: int,
         raise ValueError(f"binning_pass: {out_rows * LANES} output elements "
                          "exceed int32")
     n = rows * LANES
-    lib = _library()
+    lib = _nvcc.load(SOURCE)
     parts = -(-n // lib.gst_binning_partition())
     cursors_out = torch.empty_like(cursors)
     # 16 status words a partition in the chained scans' scratch of this

@@ -35,9 +35,6 @@ by `sort.launches` or `sort_pairs.launches`.  A CPU tensor takes
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..core import codec
@@ -134,26 +131,6 @@ def sort_pairs_plain(keys: torch.Tensor, values: torch.Tensor
 # ---- the kernels ----------------------------------------------------------
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.gst_radix256_sort
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
-        ctypes.c_uint] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                              ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.gst_radix256_sort_pairs
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
-        ctypes.c_uint] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                              ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for name in ("gst_radix256_partition", "gst_radix256_pairs_partition",
-                 "gst_radix256_counts_words"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
-
-
 def _counts_buffer(dev: torch.device, stream: int, words: int
                    ) -> torch.Tensor:
     key = (dev.index, stream)
@@ -185,7 +162,7 @@ def _launch(pairs: bool, kind: KeyType, planes: list) -> None:
     outputs, ping-pong buffers), the first of them the keys."""
     dev = planes[0].device
     n = planes[0].shape[0]
-    lib = _library()
+    lib = _nvcc.load(SOURCE)
     if pairs:
         op, fn = "radix256.sort_pairs", lib.gst_radix256_sort_pairs
         parts = -(-n // lib.gst_radix256_pairs_partition())

@@ -18,9 +18,6 @@ kernel is compiled with `nvcc` at first use from the package's own source
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..utils.trace import launch_counter
@@ -53,16 +50,6 @@ def relocate_plain(ctrl: torch.Tensor, src: torch.Tensor,
     return torch.cat([src, fringe]).index_select(0, g.reshape(-1))
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.gst_relocate_rows
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def _check(name: str, t: torch.Tensor, shape: tuple, device: torch.device):
     _nvcc.check("relocate", name, t, shape, device, ref="src")
 
@@ -86,8 +73,8 @@ def relocate(ctrl: torch.Tensor, src: torch.Tensor, fringe: torch.Tensor,
     if rows_total >= 1 << 31:
         raise ValueError(f"relocate: {rows_total} rows exceed int32")
     out = torch.empty_like(src)
-    _nvcc.launch("relocate", _library().gst_relocate_rows, ctrl.data_ptr(),
-                 src.data_ptr(), fringe.data_ptr(), out.data_ptr(), K,
-                 l_rows, slab_rows, device=dev)
+    _nvcc.launch("relocate", _nvcc.load(SOURCE).gst_relocate_rows,
+                 ctrl.data_ptr(), src.data_ptr(), fringe.data_ptr(),
+                 out.data_ptr(), K, l_rows, slab_rows, device=dev)
     relocate.launches += 1
     return out

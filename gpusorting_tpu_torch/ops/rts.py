@@ -35,9 +35,6 @@ downsweep grid (one launch per pass) and the slack rows past the output.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..core import codec
@@ -134,17 +131,6 @@ def downsweep_plain(planes, table: torch.Tensor, shift: int,
     return _scatter(planes, order, dst)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    fn = lib.gst_downsweep
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 @launch_counter
 def downsweep(planes, table: torch.Tensor, shift: int,
               tile_rows: int) -> list:
@@ -177,7 +163,7 @@ def downsweep(planes, table: torch.Tensor, shift: int,
         raise ValueError(f"downsweep: {rows * LANES} elements exceed int32")
     outs = [torch.empty_like(p) for p in planes]
     spare = [0] * (MAX_PLANES - len(planes))
-    _nvcc.launch("downsweep", _library().gst_downsweep,
+    _nvcc.launch("downsweep", _nvcc.load(SOURCE).gst_downsweep,
                  *[p.data_ptr() for p in planes], *spare,
                  *[o.data_ptr() for o in outs], *spare, table.data_ptr(),
                  len(planes), num_tiles, tile_rows * LANES, shift,
@@ -250,16 +236,6 @@ def downsweep_rows_plain(planes, table: torch.Tensor, counts: torch.Tensor,
     return outs, side.reshape(-1, LANES)
 
 
-@functools.cache
-def _rows_library() -> ctypes.CDLL:
-    lib = _nvcc.load(ROWS_SOURCE)
-    fn = lib.gst_downsweep_rows
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 @launch_counter
 def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
                    shift: int, tile_rows: int):
@@ -317,7 +293,7 @@ def downsweep_rows(planes, table: torch.Tensor, counts: torch.Tensor,
     side = torch.empty((num_tiles * len(planes) * NBUCKETS * 2, LANES),
                        dtype=torch.int32, device=dev)
     spare = [0] * (MAX_PLANES - len(planes))
-    _nvcc.launch("downsweep_rows", _rows_library().gst_downsweep_rows,
+    _nvcc.launch("downsweep_rows", _nvcc.load(ROWS_SOURCE).gst_downsweep_rows,
                  *[p.data_ptr() for p in planes], *spare,
                  *[o.data_ptr() for o in outs], *spare, side.data_ptr(),
                  table.data_ptr(), counts.data_ptr(), len(planes),
@@ -350,16 +326,6 @@ def edge_fixup_plain(rowtab: torch.Tensor, table: torch.Tensor,
         for o, out in enumerate(outs):
             out[r] |= side[side_row(t[sel], o, d[sel], e[sel], num_ops)]
     return outs
-
-
-@functools.cache
-def _fixup_library() -> ctypes.CDLL:
-    lib = _nvcc.load(FIXUP_SOURCE)
-    fn = lib.gst_edge_fixup
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
 
 
 @launch_counter
@@ -412,7 +378,7 @@ def edge_fixup(rowtab: torch.Tensor, table: torch.Tensor,
     if rows * LANES >= 1 << 31:
         raise ValueError(f"edge_fixup: {rows * LANES} elements exceed int32")
     spare = [0] * (MAX_PLANES - len(outs))
-    _nvcc.launch("edge_fixup", _fixup_library().gst_edge_fixup,
+    _nvcc.launch("edge_fixup", _nvcc.load(FIXUP_SOURCE).gst_edge_fixup,
                  *[o.data_ptr() for o in outs], *spare, side.data_ptr(),
                  rowtab.data_ptr(), table.data_ptr(), len(outs), num_tiles,
                  rows, device=dev)

@@ -24,9 +24,6 @@ offset.  n is below 2^30.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from ..utils.trace import launch_counter
@@ -76,22 +73,6 @@ def _pointers(tensors) -> list:
     return ptrs + [None] * (MAX_PLANES - len(ptrs))
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    # ..., scratch, scratch_words, epoch, num_ops, stream
-    tail = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
-            ctypes.c_void_p]
-    lib.gst_compact.argtypes = [ctypes.c_void_p] * 9 + [
-        ctypes.c_longlong, ctypes.c_void_p] + tail
-    lib.gst_compact.restype = ctypes.c_int
-    lib.gst_expand.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 5 + [
-        ctypes.c_longlong] + tail
-    lib.gst_expand.restype = ctypes.c_int
-    return lib
-
-
 # ---- compact --------------------------------------------------------------
 
 
@@ -139,10 +120,10 @@ def compact_ops(values: tuple, mask: torch.Tensor):
     count = torch.empty((), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch, epoch = kernels._scan_scratch(dev, stream, -(-n // TILE))
-    _nvcc.launch("compact_ops", _library().gst_compact, *_pointers(values),
-                 *_pointers(outs), mask.data_ptr(), n, count.data_ptr(),
-                 scratch.data_ptr(), scratch.numel() - 1, epoch,
-                 len(values), device=dev, stream=stream)
+    _nvcc.launch("compact_ops", _nvcc.load(SOURCE).gst_compact,
+                 *_pointers(values), *_pointers(outs), mask.data_ptr(), n,
+                 count.data_ptr(), scratch.data_ptr(), scratch.numel() - 1,
+                 epoch, len(values), device=dev, stream=stream)
     compact_ops.launches += 1
     return outs, count
 
@@ -196,8 +177,8 @@ def expand_ops(srcs: tuple, mask: torch.Tensor) -> tuple:
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch, epoch = kernels._scan_scratch(dev, stream, -(-n // TILE))
     lens = [s.shape[0] for s in srcs] + [0] * (MAX_PLANES - len(srcs))
-    _nvcc.launch("expand_ops", _library().gst_expand, *_pointers(srcs),
-                 *lens, *_pointers(outs), mask.data_ptr(), n,
+    _nvcc.launch("expand_ops", _nvcc.load(SOURCE).gst_expand,
+                 *_pointers(srcs), *lens, *_pointers(outs), mask.data_ptr(), n,
                  scratch.data_ptr(), scratch.numel() - 1, epoch, len(srcs),
                  device=dev, stream=stream)
     expand_ops.launches += 1

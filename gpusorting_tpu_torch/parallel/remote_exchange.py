@@ -41,9 +41,6 @@ the biased code plane of the distributed sort fills with
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 import torch.distributed as dist
 
@@ -104,17 +101,6 @@ def mask_arrivals_plain(planes, rc: torch.Tensor, fills, col0: int = 0,
         rows.copy_(torch.where(valid, rows, fill))
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _nvcc.load(SOURCE)
-    lib.gst_mask_arrivals.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-           ctypes.c_longlong, ctypes.c_void_p])
-    lib.gst_mask_arrivals.restype = ctypes.c_int
-    return lib
-
-
 @launch_counter
 def mask_arrivals(planes, rc: torch.Tensor, fills, col0: int = 0,
                   sources: range | None = None) -> None:
@@ -159,7 +145,7 @@ def mask_arrivals(planes, rc: torch.Tensor, fills, col0: int = 0,
     if nsrc == 0 or width == 0:
         return
     pad = MAX_PLANES - len(planes)
-    _nvcc.launch("mask_arrivals", _library().gst_mask_arrivals,
+    _nvcc.launch("mask_arrivals", _nvcc.load(SOURCE).gst_mask_arrivals,
                  *[p.data_ptr() for p in planes], *[None] * pad,
                  *[p.stride(0) for p in planes], *[0] * pad,
                  *[int(f) for f in fills], *[0] * pad, len(planes),

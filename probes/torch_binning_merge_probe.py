@@ -298,12 +298,7 @@ def shapes(card, dev):
             _emit(card, kernel="binning_shape", threads=threads,
                   items=items, error=proc.stderr[-400:])
             continue
-        lib = ctypes.CDLL(so)
-        fn = lib.gst_binning
-        fn.argtypes = [ctypes.c_void_p] * 10 + [
-            ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = _nvcc.declare(ctypes.CDLL(so), radix16.SOURCE).gst_binning
         part = threads * items
         rec = dict(kernel="binning_shape", threads=threads, items=items,
                    partition=part, ptxas=regs)

@@ -41,6 +41,7 @@ Needs a CUDA card and nvcc.
 import ctypes
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -177,6 +178,7 @@ def checks(card, dev):
 
 def exchange_rate(card, dev):
     """The register compare-exchange rate; returns {form: exchanges/s}."""
+    from gpusorting_tpu_torch.ops import _nvcc
     src = os.path.join(HERE, "probes", "torch_exchange_rate.cu")
     build = os.path.join(HERE, "gpusorting_tpu_torch", "_build")
     os.makedirs(build, exist_ok=True)
@@ -184,10 +186,7 @@ def exchange_rate(card, dev):
     rc, lines, err = _compile(src, so)
     if rc:
         raise RuntimeError(f"nvcc failed on {src}:\n{err}")
-    lib = ctypes.CDLL(so)
-    lib.gst_rate.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_uint, ctypes.c_void_p]
-    lib.gst_rate.restype = ctypes.c_int
+    lib = _nvcc.declare(ctypes.CDLL(so), pathlib.Path(src))
     per_round = lib.gst_rate_exchanges_per_round()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks, rounds = sms * 16, 4096
@@ -314,7 +313,7 @@ def times(card, dev, candidates=True, launch=None, items=None):
 def shapes(card, dev):
     """mergesweep.cu built with other registers a thread, each checked and
     timed on the two schedules."""
-    from gpusorting_tpu_torch.ops import mergesweep
+    from gpusorting_tpu_torch.ops import _nvcc, mergesweep
     build = os.path.join(TREE, "gpusorting_tpu_torch", "_build")
     os.makedirs(build, exist_ok=True)
     for turn, (e1, e3) in enumerate(((8, 4), (32, 4), (16, 8))):
@@ -326,11 +325,7 @@ def shapes(card, dev):
             _emit(card, kernel="hyper_shape", items1=e1, items3=e3,
                   error=err[-400:])
             continue
-        lib = ctypes.CDLL(so)
-        lib.gst_hyper_stage.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 2 + [ctypes.c_longlong] * 4 + [ctypes.c_int,
-                                                           ctypes.c_void_p]
-        lib.gst_hyper_stage.restype = ctypes.c_int
+        lib = _nvcc.declare(ctypes.CDLL(so), mergesweep.SOURCE)
         stream = torch.cuda.current_stream(dev).cuda_stream
 
         def launch(ops, k, j_hi, j_lo, nk, cols):

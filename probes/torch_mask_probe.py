@@ -92,14 +92,10 @@ def _build_other(src: pathlib.Path, tag: str) -> pathlib.Path:
     return so
 
 
-def _entry(so: pathlib.Path):
-    fn = ctypes.CDLL(str(so)).gst_mask_arrivals
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4
-                   + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _entry(so: pathlib.Path, src: pathlib.Path):
+    """`gst_mask_arrivals` of `so`, declared from `src`, its source."""
+    from gpusorting_tpu_torch.ops import _nvcc
+    return _nvcc.declare(ctypes.CDLL(str(so)), src).gst_mask_arrivals
 
 
 def _caller(fn, planes, rc, fills, col0):
@@ -171,10 +167,10 @@ def main() -> int:
         builds[f"alt_{alt.stem}"] = alt
     for src in builds.values():
         _ptxas(src)
-    fns = {"this": _entry(_nvcc.build(rx.SOURCE))}
+    fns = {"this": _entry(_nvcc.build(rx.SOURCE), rx.SOURCE)}
     for name, src in builds.items():
         if name != "this":
-            fns[name] = _entry(_build_other(src, name))
+            fns[name] = _entry(_build_other(src, name), src)
     turn = (["parent"] if "parent" in fns else []) + ["this"] + [
         b for b in fns if b.startswith("alt_")]
     order = turn + turn[::-1]

@@ -74,7 +74,7 @@ def main() -> int:
            ("torch.empty_like", lambda: torch.empty_like(vals))]
     if hasattr(kernels, "_scan_scratch"):   # the one-launch chained scan
         out = torch.empty_like(vals)
-        lib = kernels._scan_library()
+        lib = _nvcc.load(kernels.SCAN_SOURCE)
         scratch, _ = kernels._scan_scratch(
             dev, torch.cuda.current_stream(dev).cuda_stream, 512)
         epoch = [1 << 20]

@@ -97,7 +97,7 @@ def _shapes(dev, emit, n, pairs):
     import concurrent.futures
 
     from gpusorting_tpu_torch.core import prng
-    from gpusorting_tpu_torch.ops import flat_sort, kernels
+    from gpusorting_tpu_torch.ops import _nvcc, flat_sort, kernels, radix256
     from gpusorting_tpu_torch.utils import timing
 
     shapes = SHAPES + (PAIRS_SHAPES if pairs else ())
@@ -115,17 +115,8 @@ def _shapes(dev, emit, n, pairs):
             emit(kernel="radix256_shape", shape=_name(shape),
                  error=proc.stderr[-1500:])
             continue
-        lib = ctypes.CDLL(str(so))
-        fn = lib.gst_radix256_sort
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [
-            ctypes.c_uint] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        pfn = lib.gst_radix256_sort_pairs
-        pfn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
-            ctypes.c_uint] * 4 + [ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_void_p]
-        pfn.restype = ctypes.c_int
+        lib = _nvcc.declare(ctypes.CDLL(str(so)), radix256.SOURCE)
+        fn, pfn = lib.gst_radix256_sort, lib.gst_radix256_sort_pairs
         counts = torch.zeros(4096, dtype=torch.int32, device=dev)
         threads = shape.get("THREADS", 512)
         part = threads * shape.get("ITEMS", 20)

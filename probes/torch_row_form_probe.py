@@ -56,7 +56,6 @@ TILES = (32, 128)
 SHAPES = ((16, 1), (16, 2), (16, 3), (16, 4), (8, 4), (8, 6))  # items, blocks
 GROUPS = (1, 2, 4, 8)   # high entries a fixup warp takes
 BW = 3.35e12          # H100 SXM bytes/s (data sheet)
-C_INT, C_PTR = ctypes.c_int, ctypes.c_void_p
 
 
 def _card() -> str:
@@ -84,8 +83,9 @@ def _ptxas(src, flags=()):
         raise RuntimeError(f"nvcc failed on {src}:\n{out.stderr}")
 
 
-def _build_other(src: pathlib.Path, tag: str, flags=()) -> pathlib.Path:
-    """`src` built with `flags` into _build/ under a name of its own."""
+def _build_other(src: pathlib.Path, tag: str, flags=()) -> ctypes.CDLL:
+    """`src` built with `flags` into _build/ under a name of its own, loaded
+    with its entries declared from `src`."""
     from gpusorting_tpu_torch.ops import _nvcc
     h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     for header in sorted(src.parent.glob("*.cuh")):
@@ -95,7 +95,7 @@ def _build_other(src: pathlib.Path, tag: str, flags=()) -> pathlib.Path:
         _nvcc.BUILD_DIR.mkdir(exist_ok=True)
         subprocess.run([_nvcc._nvcc(), *_nvcc.NVCC_FLAGS, *flags, "-o",
                         str(so), str(src)], check=True)
-    return so
+    return _nvcc.declare(ctypes.CDLL(str(so)), src)
 
 
 def _med(fn, dev, iters=5):
@@ -132,17 +132,12 @@ class Build:
     outputs zeroed, no table for the fixup), or a shape of this tree's
     `downsweep_rows` (the outputs from torch.empty)."""
 
-    def __init__(self, rows_so, fixup_so=None, zeroed=True):
-        lib = ctypes.CDLL(str(rows_so))
-        self.rows = lib.gst_downsweep_rows
-        self.rows.argtypes = [C_PTR] * 9 + [C_INT] * 4 + [C_PTR]
-        self.rows.restype = C_INT
-        self.lib = lib
+    def __init__(self, rows_lib, fixup_lib=None, zeroed=True):
+        self.rows = rows_lib.gst_downsweep_rows
+        self.lib = rows_lib
         self.zeroed = zeroed
-        if fixup_so is not None:
-            self.fixup = ctypes.CDLL(str(fixup_so)).gst_edge_fixup
-            self.fixup.argtypes = [C_PTR] * 5 + [C_INT] * 3 + [C_PTR]
-            self.fixup.restype = C_INT
+        if fixup_lib is not None:
+            self.fixup = fixup_lib.gst_edge_fixup
 
     @staticmethod
     def _ok(rc, what):
@@ -177,12 +172,9 @@ class Build:
 
 def _occupancy(lib, planes, tile):
     from gpusorting_tpu_torch.ops import rts
-    fn = lib.gst_downsweep_rows_occupancy
-    fn.argtypes = [C_INT, C_INT, ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.POINTER(C_INT)]
-    fn.restype = C_INT
-    smem, blocks = ctypes.c_longlong(), C_INT()
-    rc = fn(planes, tile, ctypes.byref(smem), ctypes.byref(blocks))
+    smem, blocks = ctypes.c_longlong(), ctypes.c_int()
+    rc = lib.gst_downsweep_rows_occupancy(planes, tile, ctypes.byref(smem),
+                                          ctypes.byref(blocks))
     if rc:
         raise RuntimeError(f"occupancy query: CUDA error {rc}")
     if smem.value != rts.rows_stage_bytes(planes, tile):
@@ -193,10 +185,8 @@ def _occupancy(lib, planes, tile):
 class Fixup:
     """A shape of this tree's `edge_fixup` (the table passed)."""
 
-    def __init__(self, so):
-        self.fn = ctypes.CDLL(str(so)).gst_edge_fixup
-        self.fn.argtypes = [C_PTR] * 6 + [C_INT] * 3 + [C_PTR]
-        self.fn.restype = C_INT
+    def __init__(self, lib):
+        self.fn = lib.gst_edge_fixup
 
     def __call__(self, rowtab, table, side, outs):
         spare = [0] * (3 - len(outs))
@@ -246,10 +236,11 @@ def fixup_shapes(card, dev, fixups):
 
 
 def occupancy(card):
-    from gpusorting_tpu_torch.ops import rts
+    from gpusorting_tpu_torch.ops import _nvcc, rts
     for tile in TILES:
         for planes in (1, 2, 3):
-            smem, blocks = _occupancy(rts._rows_library(), planes, tile)
+            smem, blocks = _occupancy(_nvcc.load(rts.ROWS_SOURCE), planes,
+                                      tile)
             _emit(card, kernel="downsweep_rows_occupancy", tile_rows=tile,
                   planes=planes, dynamic_smem_bytes=smem,
                   blocks_per_sm=blocks)

@@ -298,8 +298,6 @@ def shapes(card, dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     build = os.path.join(TREE, "gpusorting_tpu_torch", "_build")
     os.makedirs(build, exist_ok=True)
-    tail = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int,
-            ctypes.c_void_p]
     for turn, (threads, items) in enumerate((
             (256, 16), (128, 16), (512, 16), (128, 32), (256, 32), (256, 16),
             (128, 16))):
@@ -315,12 +313,7 @@ def shapes(card, dev):
             _emit(card, kernel="stitch_shape", threads=threads, items=items,
                   error=proc.stderr[-400:])
             continue
-        lib = ctypes.CDLL(so)
-        lib.gst_compact.argtypes = [ctypes.c_void_p] * 9 + [
-            ctypes.c_longlong, ctypes.c_void_p] + tail
-        lib.gst_expand.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong] + tail
+        lib = _nvcc.declare(ctypes.CDLL(so), stitch.SOURCE)
         tile = lib.gst_stitch_tile()
 
         def scratch():

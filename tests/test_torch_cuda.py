@@ -23,10 +23,10 @@ import torch
 
 import gpusorting_tpu_torch as gstt
 from gpusorting_tpu_torch.core import codec, config, prng
-from gpusorting_tpu_torch.ops import (bitonic, ffx, flat_sort, kernels,
-                                      mergesweep, radix, radix16, relocate,
-                                      rangesweep as rs, rts, splitsweep,
-                                      stitch)
+from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, flat_sort,
+                                      kernels, mergesweep, radix, radix16,
+                                      relocate, rangesweep as rs, rts,
+                                      splitsweep, stitch)
 from gpusorting_tpu_torch.parallel import dist_sort
 from gpusorting_tpu_torch.parallel import remote_exchange as rx
 from gpusorting_tpu_torch.segsort import splitsort
@@ -717,7 +717,7 @@ def test_stitch_kernels_many_tiles_match_plain(cuda, kind):
     """2^24 + 5 elements, thousands of tiles: every lookback crosses many
     32-word windows; 1 and 3 planes, a stream shorter than the set
     count."""
-    assert stitch._library().gst_stitch_tile() == stitch.TILE
+    assert _nvcc.load(stitch.SOURCE).gst_stitch_tile() == stitch.TILE
     n = (1 << 24) + 5
     mask = _stitch_mask(kind, n, cuda)
     planes = [prng.hybrid_taus_bits(n, 30 + q, device=cuda)
