@@ -222,7 +222,16 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      i32 and f32 payloads (NaN patterns among them), also against
      `torch.sort(stable=True)` and the gather, AUTO's sort_pairs and
      argsort with no readback, its times beside the flat pairs route and
-     `torch.sort(codes, stable=True)` with the gather.
+     `torch.sort(codes, stable=True)` with the gather;
+ 24. the segmented sort's shared-memory tile (segsort/segtile.py, the tile
+     route of the card's row; `segtile_phase`) at both segmented cells'
+     layouts at 2^26 (u32 pairs in segments of 1-4096; 16-bit keys with a
+     64-bit payload in segments of 1-8192): the kernel against its plain
+     version and the composite oracle, one launch; split_sort_pairs on the
+     installed row through the tile route (no window plan), bit for bit;
+     then the kernel's time beside its byte bound, the plain version, the
+     oracle's composite, split_sort_pairs on the row and with the route
+     off.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -581,6 +590,127 @@ def radix256_phase(dev, emit, n: int = N, pairs: bool = True) -> dict:
     return rec
 
 
+def segtile_phase(dev, emit, n: int = 1 << 26) -> dict:
+    """Phase 24: the segmented sort's shared-memory tile (segsort/segtile.py,
+    csrc/segtile.cu) at the two segmented cells' layouts at n: (u32, u32)
+    pairs in random segments of 1-4096 by all 32 bits, and 16-bit u32 keys
+    with a 64-bit payload in segments of 1-8192 by 16 bits.  Each: the
+    kernel bit for bit against its plain version and the composite oracle
+    (flat_sort.segmented_sort_pairs), one launch; split_sort_pairs on the
+    installed row, which must take the tile route (`engine.tile` once, no
+    window plan, one launch) and give the oracle's bits.  Then times: the
+    kernel (a torch.profiler trace of 10 calls, and events around each
+    call), its byte bound, the plain version, `library` (the oracle: one
+    stable torch.sort of the int64 (segment, code) composite and the
+    gather), split_sort_pairs on the installed row, and with the tile
+    route off (the composite route).  Returns {layout: times}."""
+    import torch
+
+    import gpusorting_tpu_torch as gstt
+    from gpusorting_tpu_torch.core import prng
+    from gpusorting_tpu_torch.ops import flat_sort
+    from gpusorting_tpu_torch.segsort import segtile
+    from gpusorting_tpu_torch.utils import timing, trace
+
+    info = gstt.get_device_info(dev)
+    bw = info.hbm_gbps * 1e9
+    installed = gstt.get_routing_parameters(info)
+    off_row = dataclasses.replace(installed, segsort_tile_max=0)
+
+    def med(fn, iters=10):
+        return statistics.median(timing.device_time_ms(fn, iters=iters,
+                                                       device=dev))
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and torch.equal(
+            a.view(torch.int32 if a.dtype.itemsize == 4 else torch.int64),
+            b.view(torch.int32 if b.dtype.itemsize == 4 else torch.int64))
+
+    out = {}
+    for label, max_len, bits, wide in (("max4096_u32_pairs", 4096, 32, False),
+                                       ("b16_max8192_u64_pairs", 8192, 16,
+                                        True)):
+        offs, S = prng.make_random_segments(n, max_len, SEED + max_len,
+                                            device=dev)
+        if wide:
+            keys = prng.make_masked_random_values(n, bits, SEED + 31,
+                                                  device=dev)
+            vals = torch.arange(n, dtype=torch.int64, device=dev).view(
+                torch.uint64)
+        else:
+            keys = prng.make_test_keys(n, SEED + 32, device=dev)
+            vals = torch.arange(n, dtype=torch.int32, device=dev).view(
+                torch.uint32)
+        planes = (vals.view(torch.int64 if wide else torch.int32),)
+        before = segtile.sort.launches
+        gk, (gv,) = segtile.sort(offs, keys, planes, bits, max_len=max_len)
+        torch.cuda.synchronize()
+        _require(segtile.sort.launches - before == 1,
+                 f"segtile {label}: not one launch")
+        wk, (wv,) = segtile.sort_plain(offs, keys, planes, bits)
+        _require(same(gk, wk) and same(gv, wv),
+                 f"segtile {label} != its plain version")
+        ok, ov = flat_sort.segmented_sort_pairs(offs, keys, vals, n)
+        _require(same(gk, ok) and same(gv.view(vals.dtype), ov),
+                 f"segtile {label} != the composite oracle")
+        del wk, wv
+        spans, before = trace.counts(), segtile.sort.launches
+        ak, av = gstt.split_sort_pairs(offs, keys, vals, S, n, bits)
+        torch.cuda.synchronize()
+        after = trace.counts()
+        moved = {k: after.get(k, 0) - spans.get(k, 0)
+                 for k in ("engine.tile", "dispatch.window_plan",
+                           "engine.composite")}
+        tile_route = max_len <= installed.segsort_tile_max
+        _require(moved == {"engine.tile": int(tile_route),
+                           "dispatch.window_plan": int(not tile_route),
+                           "engine.composite": int(not tile_route)},
+                 f"split_sort_pairs {label}: spans {moved}")
+        _require(segtile.sort.launches - before == int(tile_route),
+                 f"split_sort_pairs {label}: segtile launches")
+        _require(same(ak, ok) and same(av, ov),
+                 f"split_sort_pairs {label} != the composite oracle")
+        del ak, av, ok, ov, gk, gv
+        torch.cuda.empty_cache()
+
+        rec = {"layout": label, "n": n, "segments": S, "max_len": max_len,
+               "bits_to_sort": bits, "payload_bytes": 8 if wide else 4,
+               "tile": segtile.tile_for(max_len),
+               "bound_ms": ((16 + (8 if wide else 0)) * n + 4 * S) / bw
+               * 1e3, "bound_by": "bytes",
+               "launches": 1, "route": "tile" if tile_route else "composite",
+               "segsort_tile_max": installed.segsort_tile_max}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                segtile.sort(offs, keys, planes, bits, max_len=max_len)
+            torch.cuda.synchronize()
+        per = _kernel_ms(prof, ("segtile",), 1)
+        rec["ms"] = per and per[0]
+        rec["call_ms"] = med(lambda: segtile.sort(offs, keys, planes, bits,
+                                                  max_len=max_len))
+        rec["plain_ms"] = med(lambda: segtile.sort_plain(offs, keys, planes,
+                                                         bits), iters=2)
+        rec["library_ms"] = med(lambda: flat_sort.segmented_sort_pairs(
+            offs, keys, vals, n), iters=5)
+        rec["library"] = ("flat_sort.segmented_sort_pairs: torch.sort("
+                          "stable=True) of the int64 (segment, code) "
+                          "composite, then the gather")
+        rec["auto_ms"] = med(lambda: gstt.split_sort_pairs(
+            offs, keys, vals, S, n, bits), iters=5)
+        gstt.set_routing_override(off_row)
+        try:
+            rec["composite_route_ms"] = med(lambda: gstt.split_sort_pairs(
+                offs, keys, vals, S, n, bits), iters=5)
+        finally:
+            gstt.clear_routing_override()
+        emit(phase="segtile_times", **rec)
+        out[label] = rec
+        del offs, keys, vals, planes
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -602,7 +732,7 @@ def main() -> int:
     from gpusorting_tpu_torch.parallel import dist_sort
     from gpusorting_tpu_torch.parallel import remote_exchange as rx
     from gpusorting_tpu_torch.parallel.launch import run_ranks
-    from gpusorting_tpu_torch.segsort import splitsort
+    from gpusorting_tpu_torch.segsort import segtile, splitsort
     from gpusorting_tpu_torch.utils import timing, validate
 
     dev = torch.device("cuda", 0)
@@ -633,7 +763,8 @@ def main() -> int:
     sources = (relocate.SOURCE, kernels.HIST_SOURCE, kernels.SCAN_SOURCE,
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
                bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE, rx.SOURCE,
-               rts.ROWS_SOURCE, rts.FIXUP_SOURCE, radix256.SOURCE)
+               rts.ROWS_SOURCE, rts.FIXUP_SOURCE, radix256.SOURCE,
+               segtile.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -1755,6 +1886,9 @@ def main() -> int:
     def route_of(plan, bits_to_sort=32, has_payload=True):
         if plan.fixed_length is not None and plan.fixed_length > 1:
             return "fixed"
+        if splitsort._takes_tile(plan.max_len, plan.total, plan.total,
+                                 plan.info):
+            return "tile"
         wp = plan.window_plan(bits_to_sort, has_payload) or {}
 
         def mode(ml, sid_bits):
@@ -1861,7 +1995,7 @@ def main() -> int:
         f: getattr(seg_defaults, f) for f in (
             "window_max_keys", "window_max_fused", "window_max_pairs",
             "segsort_bulk_max", "segsort_padded_max",
-            "segsort_extract_max_frac")})
+            "segsort_extract_max_frac", "segsort_tile_max")})
 
     def rows_for(offs, total, S):
         """[(tag, override or None, route)]: the installed row, and the
@@ -3272,7 +3406,8 @@ def main() -> int:
                    merge_tail=mergesweep.merge_tail,
                    downsweep_rows=rts.downsweep_rows,
                    edge_fixup=rts.edge_fixup,
-                   mask_arrivals=rx.mask_arrivals)
+                   mask_arrivals=rx.mask_arrivals,
+                   segtile=segtile.sort)
     for f in all_fns.values():
         f.launches = 0
     cli_runs = []
@@ -3440,6 +3575,10 @@ def main() -> int:
 
     # ---- phase 23: the 8-bit-digit radix sort, AUTO's keys and pairs -----
     r256 = radix256_phase(dev, emit)
+    free()
+
+    # ---- phase 24: the segmented sort's shared-memory tile ---------------
+    seg_tile = segtile_phase(dev, emit)
     free()
 
     def stitch_row(kname, replaces):
@@ -3629,7 +3768,16 @@ def main() -> int:
          "sort_bound_ms": r256["sort_bound_ms"],
          "upsweep_bound_ms": r256["upsweep_bound_ms"],
          "library_ms": r256["library_ms"],
-         "library": "torch.sort(codes).values", "card": card}]}),
+         "library": "torch.sort(codes).values", "card": card},
+        {"name": "segtile", "route": "cuda",
+         "source": "gpusorting_tpu_torch/csrc/segtile.cu",
+         "replaces": None, "launches": 1, "max_abs_err": 0,
+         **{f"{key}_{lay}": rec[key] for lay, rec in seg_tile.items()
+            for key in ("ms", "call_ms", "plain_ms", "bound_ms",
+                        "library_ms", "auto_ms", "composite_route_ms")},
+         "bound_by": "bytes",
+         "library": seg_tile["max4096_u32_pairs"]["library"],
+         "card": card}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

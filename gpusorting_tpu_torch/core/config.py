@@ -361,6 +361,14 @@ class RoutingParameters:
                                   payload (the kernels' pairs form; argsort
                                   reaches it through `sort_pairs` with its
                                   int32 index; 64-bit payloads never).
+      segsort_tile_max          — largest longest-segment length of a
+                                  random-length layout the segmented sort
+                                  sends to its shared-memory tile route
+                                  on a CUDA card (segsort/segtile.py,
+                                  hand-written kernel, at most 8192);
+                                  0 disables the route.  The JAX package
+                                  has no such route, so its rows convert
+                                  to 0.
       measured                  — True only for a row measured on its card.
     """
 
@@ -383,6 +391,7 @@ class RoutingParameters:
     segsort_extract_max_frac: float = 0.5
     radix256_min: int | None = None
     radix256_min_pairs: int | None = None
+    segsort_tile_max: int = 0
     measured: bool = False
 
 
@@ -466,6 +475,17 @@ _ROUTING_TABLE = {
     #   against 25.322 at 2^28.  Below 2^20 both routes take the host's
     #   time a call (0.10-0.27 ms).  The first build's 512 x 20 partition
     #   spilled and lost at 6 sizes below 786432.
+    # segsort_tile_max: 8192, the largest max length swept, since the tile
+    #   route beat the composite at all 36 layouts: probes/
+    #   torch_segtile_probe.py --sweep, split_sort_pairs with the route on
+    #   (8192) and off (0) in turns, 2^22 and 2^26 keys in random segments
+    #   of at most 32, 64, .. 8192, (u32, u32) pairs by 32 bits and 16-bit
+    #   keys with a 64-bit payload by 16 bits, the median of 5 calls each
+    #   between events after an untimed call.  At 2^26, u32 pairs: 50.754
+    #   against 534.215 ms at 32, 2.342 against 28.645 at 1024, 2.189
+    #   against 18.662 at 4096, 2.158 against 17.231 at 8192; 16-bit keys
+    #   with 64-bit payloads 1.308 against 15.334 at 8192.  The narrowest
+    #   margin, 5.75x: 2^22 u32 pairs at 4096, 0.388 against 2.230 ms.
     # segsort_extract_max_frac: 0.0, so the multi-class route never runs:
     #   the probe at the picks above, all three modes summed, 116.601 ms at
     #   0.0 (and 0.1, 0.25: the same routes) against 175.506 at 0.5 and
@@ -489,6 +509,7 @@ _ROUTING_TABLE = {
                               segsort_extract_max_frac=0.0,
                               radix256_min=1 << 11,
                               radix256_min_pairs=1,
+                              segsort_tile_max=8192,
                               measured=True),
 }
 

@@ -30,14 +30,21 @@ picks one from the offsets, read to the host once per call (or once per
                into rows, sorted and scattered back;
   composite  — one sort of the (segment id, code) composite over the whole
                buffer, through the range-exchange engine where AUTO routes
-               its size there.
+               its size there;
+  tile       — on a CUDA card, a random-length layout whose longest
+               segment is at most the routing row's `segsort_tile_max`:
+               every segment sorted in shared memory by one launch
+               (`segsort/segtile.py`, `csrc/segtile.cu`), decided from
+               the offsets' lengths before any window plan is built.
 The choice is the span `dispatch.route` (with `dispatch.window_plan`
 inside it where the histogram is built), the route taken the span
 `engine.<name>` above, the offsets' copy `sync.offsets` (utils/trace.py);
 the composite marks its branch and steps (`composite.*`, see
-`_composite_multi`).  Codes are the biased int32 carriers of `core.codec`;
-payloads ride as int32 planes, a 64-bit payload as two (lo, hi), split
-and joined in the spans `payload.split` and `payload.join`.
+`_composite_multi`).  The tile route takes the raw keys and the payload
+as it comes, a 64-bit one as one plane; every other route sorts the
+biased int32 carriers of `core.codec` with int32 payload planes, a 64-bit
+payload as two (lo, hi), split and joined in the spans `payload.split`
+and `payload.join`.
 
 PyTorch runs eagerly and the offsets are always tensors or arrays, never
 traced: the JAX package's tracer branches and its jitted `make_segsort_fn`
@@ -56,6 +63,7 @@ from ..core import codec, config
 from ..core.config import KeyType, Mode
 from ..ops import flat_sort, rangesweep, stitch
 from ..utils.trace import readback, span
+from . import segtile
 
 _M32 = 0xFFFFFFFF
 _SID_BACK = 0x7FFFFFFF     # window back pads sort after every segment
@@ -124,6 +132,7 @@ class SegSortPlan:
         self.seg_count = int(total_seg_count if total_seg_count is not None
                              else offs.shape[0])
         self.fixed_length = _fixed_length_of(offs, self.total, self.seg_count)
+        self.max_len = _ordered_max_len(offs, self.total, self.seg_count)
         self.info = (config.get_device_info(seg_offsets.device)
                      if isinstance(seg_offsets, torch.Tensor) else None)
         self._window_plans: dict = {}
@@ -178,6 +187,30 @@ def _fixed_length_of(offs: np.ndarray, total_length: int, seg_count: int):
     if not np.array_equal(offs, np.arange(seg_count, dtype=np.int64) * L):
         return None
     return int(L)
+
+
+def _ordered_max_len(offs: np.ndarray, total_length: int, seg_count: int):
+    """The longest segment of host offsets that start at 0 and never
+    decrease, one per segment (the layouts the tile route takes); None for
+    any other offsets."""
+    if seg_count == 0 or offs.shape[0] != seg_count or offs[0] != 0:
+        return None
+    lens = np.diff(offs, append=total_length)
+    if lens.min() < 0:
+        return None
+    return int(lens.max())
+
+
+def _takes_tile(max_len, n: int, total: int,
+                info: config.DeviceInfo) -> bool:
+    """Whether a random-length layout takes the tile route: on a CUDA card,
+    with ordered offsets (`_ordered_max_len`) whose segments cover the
+    keys, and its longest segment at most the routing row's
+    `segsort_tile_max` (0 on every row but the card's)."""
+    cap = min(config.get_routing_parameters(info).segsort_tile_max,
+              segtile.MAX_TILE)
+    return (info.platform == "cuda" and max_len is not None and total == n
+            and max_len <= cap)
 
 
 def _batched_segmented_sort(codes: torch.Tensor, payloads: tuple,
@@ -726,22 +759,23 @@ def _check_call(bits_to_sort: int, strategy: str, keys: torch.Tensor,
     return kt
 
 
-def _segmented_sort(seg_offsets, codes: torch.Tensor, payloads: tuple,
+def _segmented_sort(seg_offsets, keys: torch.Tensor, planes: tuple,
                     total_seg_count: int, total: int, bits_to_sort: int,
                     strategy: str, plan: SegSortPlan | None):
-    """The route choice shared by the public functions, on biased codes
-    and int32 payload planes.  Returns (sorted codes, sorted payloads)."""
+    """The route choice shared by the public functions, on raw keys and
+    payload bit planes (int32 planes, or one int64 plane).  Returns (sorted
+    keys, sorted planes) in the form they came."""
     if plan is not None and (plan.seg_count != total_seg_count
                              or plan.total != total):
         raise ValueError(
             f"plan was built for (seg_count={plan.seg_count}, "
             f"total={plan.total}), this call has ({total_seg_count}, "
             f"{total})")
-    offs_dev = _device_offsets(seg_offsets, codes.device)
+    offs_dev = _device_offsets(seg_offsets, keys.device)
     offs = plan.offsets if plan is not None else _host_offsets(seg_offsets)
-    has_payload = bool(payloads)
-    info = config.get_device_info(codes.device)
-    wp = L = mode = None
+    has_payload = bool(planes)
+    info = config.get_device_info(keys.device)
+    wp = L = mode = max_len = None
     with span("dispatch.route"):
         if strategy == "packed":
             route = "packed"
@@ -751,38 +785,66 @@ def _segmented_sort(seg_offsets, codes: torch.Tensor, payloads: tuple,
             if L is not None and L > 1:
                 route = "fixed"
             else:
-                if plan is not None:
-                    wp = plan.window_plan(bits_to_sort, has_payload)
+                max_len = (plan.max_len if plan is not None else
+                           _ordered_max_len(offs, total, total_seg_count))
+                if _takes_tile(max_len, keys.shape[0], total, info):
+                    route = "tile"
                 else:
-                    with span("dispatch.window_plan"):
-                        wp = _window_dispatch(
-                            offs, total, total_seg_count,
-                            bits_to_sort=bits_to_sort,
-                            has_payload=has_payload, info=info)
-                route, mode = _random_length_route(wp, bits_to_sort,
-                                                   has_payload, info)
-    fuse_bits = bits_to_sort if mode == "fused" else 0
+                    if plan is not None:
+                        wp = plan.window_plan(bits_to_sort, has_payload)
+                    else:
+                        with span("dispatch.window_plan"):
+                            wp = _window_dispatch(
+                                offs, total, total_seg_count,
+                                bits_to_sort=bits_to_sort,
+                                has_payload=has_payload, info=info)
+                    route, mode = _random_length_route(wp, bits_to_sort,
+                                                       has_payload, info)
+    if route == "tile":
+        with span("engine.tile"):
+            return segtile.sort(offs_dev, keys, planes, bits_to_sort,
+                                max_len=max_len)
+    kt = codec.key_type_of(keys)
+    codes = codec.encode_biased(keys)
+    wide = has_payload and planes[0].dtype == torch.int64
+    if wide:
+        with span("payload.split"):
+            planes = codec.split_wide(planes[0])
     with span("engine." + route):
-        if route == "packed":
-            return _packed_bins_segmented_sort(
-                offs_dev, offs, codes, payloads, total_seg_count, total)
-        if route == "fixed":
-            return _batched_segmented_sort(codes, payloads, total_seg_count,
-                                           L)
-        if route == "split":
-            return _split_class_segmented_sort(
-                offs_dev, codes, payloads, total_seg_count, wp["split"],
-                mode, fuse_bits, bits_to_sort)
-        if route == "classes":
-            return _multi_class_segmented_sort(
-                offs_dev, codes, payloads, total_seg_count, wp["classes"],
-                bits_to_sort, has_payload, info)
-        if route == "window":
-            return _windowed_segmented_sort(
-                offs_dev, codes, payloads, total_seg_count, wp["ml"],
-                mode=mode, fuse_bits=fuse_bits)
-        return _composite_multi(offs_dev, codes, payloads, total_seg_count,
-                                bits_to_sort)
+        sc, ps = _run_route(route, offs_dev, offs, codes, planes,
+                            total_seg_count, total, L, wp, mode,
+                            bits_to_sort, has_payload, info)
+    if wide:
+        with span("payload.join"):
+            ps = (codec.join_wide(*ps),)
+    return codec.decode_biased(sc, kt), ps
+
+
+def _run_route(route: str, offs_dev, offs: np.ndarray, codes, payloads,
+               seg_count: int, total: int, L, wp, mode, bits_to_sort: int,
+               has_payload: bool, info):
+    """Enqueue a route other than the tile on biased codes and int32
+    payload planes; returns (sorted codes, sorted planes)."""
+    if route == "packed":
+        return _packed_bins_segmented_sort(offs_dev, offs, codes, payloads,
+                                           seg_count, total)
+    if route == "fixed":
+        return _batched_segmented_sort(codes, payloads, seg_count, L)
+    fuse_bits = bits_to_sort if mode == "fused" else 0
+    if route == "split":
+        return _split_class_segmented_sort(
+            offs_dev, codes, payloads, seg_count, wp["split"], mode,
+            fuse_bits, bits_to_sort)
+    if route == "classes":
+        return _multi_class_segmented_sort(
+            offs_dev, codes, payloads, seg_count, wp["classes"],
+            bits_to_sort, has_payload, info)
+    if route == "window":
+        return _windowed_segmented_sort(offs_dev, codes, payloads, seg_count,
+                                        wp["ml"], mode=mode,
+                                        fuse_bits=fuse_bits)
+    return _composite_multi(offs_dev, codes, payloads, seg_count,
+                            bits_to_sort)
 
 
 def split_sort_pairs(
@@ -800,35 +862,23 @@ def split_sort_pairs(
     Reference: SplitSortPairs<BITS_TO_SORT, V> (SplitSort.cuh:702-934).
     `seg_offsets` are the exclusive-prefix starts (an int32/uint32 tensor,
     or an array); keys are u32/i32/f32; `values=None` is the keys-only
-    form; a 64-bit payload rides as two int32 planes.  strategy="packed"
-    forces the next-fit bin gather (every segment <= 32 long); "auto"
-    picks a route from the offsets.  `plan` (make_segsort_plan) carries
-    that choice and saves the offsets' host copy.
+    form; a 64-bit payload rides as one plane on the tile route and as two
+    int32 planes on the others.  strategy="packed" forces the next-fit bin
+    gather (every segment <= 32 long); "auto" picks a route from the
+    offsets.  `plan` (make_segsort_plan) carries that choice and saves the
+    offsets' host copy.
     """
     planes = () if values is None else (values,)
-    kt = _check_call(bits_to_sort, strategy, keys, planes)
-    codes = codec.encode_biased(keys.contiguous())
+    _check_call(bits_to_sort, strategy, keys, planes)
     total = keys.shape[0] if total_seg_length is None else total_seg_length
+    if values is not None:
+        planes = (codec.payload_to_bits(values.contiguous()),)
+    sk, ps = _segmented_sort(seg_offsets, keys.contiguous(), planes,
+                             total_seg_count, total, bits_to_sort, strategy,
+                             plan)
     if values is None:
-        sc, _ = _segmented_sort(seg_offsets, codes, (), total_seg_count,
-                                total, bits_to_sort, strategy, plan)
-        return codec.decode_biased(sc, kt)
-    bits = codec.payload_to_bits(values.contiguous())
-    wide = bits.dtype == torch.int64
-    if wide:
-        with span("payload.split"):
-            planes = codec.split_wide(bits)
-    else:
-        planes = (bits,)
-    sc, ps = _segmented_sort(seg_offsets, codes, planes, total_seg_count,
-                             total, bits_to_sort, strategy, plan)
-    if wide:
-        with span("payload.join"):
-            sb = codec.join_wide(*ps)
-    else:
-        sb = ps[0]
-    return (codec.decode_biased(sc, kt),
-            codec.bits_to_payload(sb, values.dtype))
+        return sk
+    return sk, codec.bits_to_payload(ps[0], values.dtype)
 
 
 def split_sort_pairs_wide(
@@ -845,18 +895,16 @@ def split_sort_pairs_wide(
     """Segmented pair sort with a 64-bit payload given as two 32-bit planes
     (lo, hi): the reference's SplitSortPairs<BITS, double> instantiation
     (SplitSort.cuh:702).  Returns (keys, lo, hi)."""
-    kt = _check_call(bits_to_sort, strategy, keys, (lo, hi))
+    _check_call(bits_to_sort, strategy, keys, (lo, hi))
     if lo.dtype.itemsize != 4 or hi.dtype.itemsize != 4:
         raise TypeError(f"lo/hi planes must be 32-bit, got {lo.dtype}, "
                         f"{hi.dtype}")
-    codes = codec.encode_biased(keys.contiguous())
     total = keys.shape[0] if total_seg_length is None else total_seg_length
-    sc, (slo, shi) = _segmented_sort(
-        seg_offsets, codes, (lo.contiguous().view(torch.int32),
-                             hi.contiguous().view(torch.int32)),
+    sk, (slo, shi) = _segmented_sort(
+        seg_offsets, keys.contiguous(), (lo.contiguous().view(torch.int32),
+                                         hi.contiguous().view(torch.int32)),
         total_seg_count, total, bits_to_sort, strategy, plan)
-    return (codec.decode_biased(sc, kt), slo.view(lo.dtype),
-            shi.view(hi.dtype))
+    return sk, slo.view(lo.dtype), shi.view(hi.dtype)
 
 
 def split_sort_keys(

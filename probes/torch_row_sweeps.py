@@ -340,6 +340,9 @@ def _route_sig(plan, bits: int, has_payload: bool) -> str:
 
     if plan.fixed_length is not None and plan.fixed_length > 1:
         return "fixed"
+    if splitsort._takes_tile(plan.max_len, plan.total, plan.total,
+                             plan.info):
+        return "tile"
     wp = plan.window_plan(bits, has_payload) or {}
 
     def mode(ml, sid_bits):

@@ -50,6 +50,7 @@ PINNED = {
     "gst_radix256_sort": "pppppquuuuiqp",
     "gst_radix256_sort_pairs": "ppppppppquuuuiqp",
     "gst_relocate_rows": "ppppiiip",
+    "gst_segtile_sort": "pppqqppppiiiip",
     "gst_tile_hist4": "ppiqip",
 }
 

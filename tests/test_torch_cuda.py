@@ -1,10 +1,11 @@
 """Tests of gpusorting_tpu_torch that need an NVIDIA card: each hand-written
 kernel (relocate, tile_histogram4, exclusive_scan, downsweep and its row
 form downsweep_rows with edge_fixup, global_histogram, binning_pass and its digit-plane form, local_stages,
-global_stage, compact_ops, expand_ops, merge_tail, hyper_stage) against its
-plain version, their launch checks, the engines
+global_stage, compact_ops, expand_ops, merge_tail, hyper_stage, the
+segmented tile) against its plain version, their launch checks, the engines
 and public entry points through the kernels against flat torch.sort, the
-segmented sort against the composite oracle, and the tuner's sweeps and
+segmented sort (its tile route included) against the composite oracle,
+and the tuner's sweeps and
 the console driver's bench line on the card.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
@@ -796,16 +797,17 @@ def _segsort_case(lens, seed, dev):
 @pytest.fixture
 def segsort_routes(cuda):
     """The split and multi-class routes, forced: the card's row sends
-    every random-length layout to the composite (its window caps and
-    extraction share are 0), so these tests take the segmented fields of
-    the JAX package's row (the dataclass defaults) by a routing override."""
+    every random-length layout to the tile route or the composite (its
+    window caps and extraction share are 0), so these tests take the
+    segmented fields of the JAX package's row (the dataclass defaults, the
+    tile route off) by a routing override."""
     row = config.get_routing_parameters(config.get_device_info(cuda))
     jax_row = config.RoutingParameters()
     config.set_routing_override(dataclasses.replace(row, **{
         f: getattr(jax_row, f) for f in (
             "window_max_keys", "window_max_fused", "window_max_pairs",
             "segsort_bulk_max", "segsort_padded_max",
-            "segsort_extract_max_frac")}))
+            "segsort_extract_max_frac", "segsort_tile_max")}))
     yield cuda
     config.clear_routing_override()
 
@@ -1892,3 +1894,180 @@ def test_radix256_across_the_epoch_wrap(cuda, k):
         # the wrap came after k draws: the rest of the eight count from 1
         assert kernels._SCAN_SCRATCH[key][1] == 8 - k
 
+
+
+# ---- the segmented sort's shared-memory tile (csrc/segtile.cu) -------------
+
+def _tile_lens(total, max_len, seed, extra=()):
+    """Random lengths in [1, max_len] with `extra` among them, the last one
+    cut so that they sum to `total`."""
+    rng = np.random.default_rng(seed)
+    lens = np.concatenate([np.asarray(extra, np.int64),
+                           rng.integers(1, max_len + 1,
+                                        4 * total // max_len + 16)])
+    ends = np.cumsum(lens)
+    k = int(np.searchsorted(ends, total))
+    lens = lens[:k + 1].copy()
+    lens[k] -= int(ends[k]) - total
+    return rng.permutation(lens)
+
+
+def _tile_keys(kind, n, dtype, seed, dev):
+    keys = prng.make_test_keys(n, seed, dtype, device=dev)
+    raw = keys.view(torch.int32)
+    if kind == "alleq":
+        raw.fill_(0x1234ABCD)
+    elif kind.startswith("bits"):
+        raw.bitwise_and_((1 << int(kind[4:])) - 1)
+    if dtype == torch.float32:
+        sp = torch.tensor([0x7FC00000, 0xFFC00001, 0, 0x80000000,
+                           0x7F800000, 0xFF800000], dtype=torch.int64,
+                          device=dev)
+        sp = ((sp ^ 0x80000000) - 0x80000000).to(torch.int32)
+        pos = torch.arange(0, n, 331, device=dev)
+        raw[pos] = sp[pos % sp.numel()]
+    return keys
+
+
+# (case, key dtype, key kind, payload, bits_to_sort, options): payload None,
+# "u32", "u64" (one int64 plane) or "wide" (lo/hi planes through
+# split_sort_pairs_wide); options: "edges" (segments of 0, 1 and the cap),
+# "over_cap" (one segment one over the cap: the composite), "u32_offsets",
+# "plan" (a SegSortPlan call)
+TILE_ROUTE = [
+    ("keys_u32", torch.uint32, "rand", None, 32, ()),
+    ("pairs_u32", torch.uint32, "rand", "u32", 32, ()),
+    ("pairs_u64_b16", torch.uint32, "bits16", "u64", 16, ()),
+    ("wide_b16", torch.uint32, "bits16", "wide", 16, ()),
+    ("pairs_b4", torch.uint32, "bits4", "u32", 4, ()),
+    ("keys_i32", torch.int32, "rand", None, 32, ()),
+    ("pairs_i32", torch.int32, "rand", "u32", 32, ()),
+    ("pairs_f32", torch.float32, "rand", "u32", 32, ()),
+    ("keys_f32", torch.float32, "rand", None, 32, ()),
+    ("alleq_pairs", torch.uint32, "alleq", "u32", 32, ()),
+    ("alleq_u64", torch.uint32, "alleq", "u64", 32, ()),
+    ("edges_pairs", torch.uint32, "rand", "u32", 32, ("edges",)),
+    ("edges_u64_b16", torch.uint32, "bits16", "u64", 16, ("edges",)),
+    ("over_cap_pairs", torch.uint32, "rand", "u32", 32, ("over_cap",)),
+    ("over_cap_keys", torch.uint32, "rand", None, 32, ("over_cap",)),
+    ("u32_offsets", torch.uint32, "rand", "u32", 32, ("u32_offsets",)),
+    ("plan_pairs", torch.uint32, "rand", "u32", 32, ("plan",)),
+    ("plan_u64_b16", torch.uint32, "bits16", "u64", 16, ("plan",)),
+]
+
+
+@pytest.mark.parametrize("case", TILE_ROUTE, ids=[c[0] for c in TILE_ROUTE])
+def test_segsort_tile_route_on_card(cuda, case):
+    """The card's row sends a random-length layout whose longest segment is
+    at most its `segsort_tile_max` to the tile route: one segtile launch,
+    `engine.tile` once, no window plan, one readback (the offsets), bit for
+    bit with the composite oracle (flat_sort.segmented_sort_pairs) and in
+    order by count_segmented_violations; one segment over the cap takes the
+    composite."""
+    from gpusorting_tpu_torch.segsort import segtile
+    from gpusorting_tpu_torch.utils import trace
+
+    name, dtype, kind, pay, bits, opts = case
+    cap = config.get_routing_parameters(
+        config.get_device_info(cuda)).segsort_tile_max
+    if cap == 0:
+        pytest.skip("the card's row sends no layout to the tile route")
+    total = 1 << 21
+    extra = ((0, 1, cap, 0, 1) if "edges" in opts
+             else (cap + 1,) if "over_cap" in opts else ())
+    lens = _tile_lens(total, cap, len(name), extra)
+    offs = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)[:-1]])).to(
+        torch.int32).to(cuda)
+    S = len(lens)
+    keys = _tile_keys(kind, total, dtype, len(name) + 7, cuda)
+    idx = torch.arange(total, dtype=torch.int64, device=cuda)
+    vals = {None: None, "u32": (idx * 2654435761).to(torch.int32),
+            "u64": idx * 0x9E3779B97F4A7C15 + 12345,
+            "wide": idx * 0x9E3779B97F4A7C15 + 12345}[pay]
+    arg_offs = offs.view(torch.uint32) if "u32_offsets" in opts else offs
+    plan = (gstt.make_segsort_plan(offs, total, S) if "plan" in opts
+            else None)
+    launches, spans = segtile.sort.launches, trace.counts()
+    if pay == "wide":
+        lo, hi = codec.split_wide(vals)
+        gk, glo, ghi = gstt.split_sort_pairs_wide(arg_offs, keys, lo, hi, S,
+                                                  total, bits, plan=plan)
+        gv = codec.join_wide(glo, ghi)
+    elif pay is None:
+        gk, gv = gstt.split_sort_keys(arg_offs, keys, S, bits,
+                                      plan=plan), None
+    else:
+        gk, gv = gstt.split_sort_pairs(arg_offs, keys, vals, S, total, bits,
+                                       plan=plan)
+    torch.cuda.synchronize()
+    after = trace.counts()
+
+    def moved(name):
+        return after.get(name, 0) - spans.get(name, 0)
+    tile = "over_cap" not in opts
+    assert segtile.sort.launches - launches == int(tile)
+    assert moved("engine.tile") == int(tile)
+    assert moved("dispatch.window_plan") == int(not tile and plan is None)
+    assert moved("engine.composite") == int(not tile)
+    if tile:
+        assert moved("payload.split") == 0
+        assert moved("sync.segment_mask") == 0
+        assert moved("sync.offsets") == int(plan is None)
+    want = flat_sort.segmented_sort_pairs(offs, keys, vals, total)
+    wk, wv = want if vals is not None else (want, None)
+    assert gk.dtype == keys.dtype
+    assert torch.equal(gk.view(torch.int32), wk.view(torch.int32))
+    if vals is not None:
+        assert torch.equal(gv.view(vals.dtype), wv)
+    assert int(validate.count_segmented_violations(offs, gk)) == 0
+
+
+@pytest.mark.parametrize("tile", [256, 1024, 2048, 4096, 8192])
+@pytest.mark.parametrize("pay", [None, "u32", "two", "u64"])
+def test_segtile_kernel_matches_plain(cuda, tile, pay):
+    """Each instantiation against the plain version, bit for bit, with
+    every payload form: segments of 0, 1, 2, the tile and random lengths
+    up to it, a start past n at the end; f32 keys (NaN, +-0) at 32 bits
+    and u32 keys at 12."""
+    from gpusorting_tpu_torch.segsort import segtile
+
+    total = 300_000 + tile
+    lens = _tile_lens(total, tile, tile, (0, 1, 2, tile, 1, 0))
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1], [total + 9]])
+    offs = codec.wrap_int32(torch.from_numpy(starts)).to(cuda)
+    idx = torch.arange(total, dtype=torch.int64, device=cuda)
+    planes = {None: (), "u32": ((idx * 40503).to(torch.int32),),
+              "two": ((idx * 40503).to(torch.int32),
+                      (idx ^ 0x5555).to(torch.int32)),
+              "u64": (idx * 0x9E3779B97F4A7C15,)}[pay]
+    for dtype, kind, bits in ((torch.float32, "rand", 32),
+                              (torch.uint32, "bits12", 12)):
+        keys = _tile_keys(kind, total, dtype, tile + 1, cuda)
+        before = segtile.sort.launches
+        gk, gp = segtile.sort(offs, keys, planes, bits, max_len=tile)
+        torch.cuda.synchronize()
+        assert segtile.sort.launches == before + 1
+        wk, wp = segtile.sort_plain(offs, keys, planes, bits)
+        assert gk.dtype == dtype
+        assert torch.equal(gk.view(torch.int32), wk.view(torch.int32))
+        for g, w in zip(gp, wp):
+            assert torch.equal(g, w)
+
+
+def test_segtile_wrapper_checks_on_card(cuda):
+    """A refused launch (a tile the kernel lacks) raises; no segments for
+    keys raises; no keys launches nothing."""
+    from gpusorting_tpu_torch.segsort import segtile
+
+    lib = _nvcc.load(segtile.SOURCE)
+    k = torch.zeros(64, dtype=torch.int32, device=cuda)
+    offs = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _nvcc.launch("segtile.sort", lib.gst_segtile_sort, k.data_ptr(),
+                     torch.empty_like(k).data_ptr(), offs.data_ptr(), 1, 64,
+                     None, None, None, None, 0, 0, 4, 512, device=cuda)
+    with pytest.raises(ValueError, match="no segments"):
+        segtile.sort(offs[:0], k)
+    before = segtile.sort.launches
+    out, _ = segtile.sort(offs, k[:0])
+    assert out.numel() == 0 and segtile.sort.launches == before

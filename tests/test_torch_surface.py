@@ -285,7 +285,7 @@ _H100_ROUTING = {
     "window_max_keys": 0, "window_max_fused": 0, "window_max_pairs": 0,
     "segsort_bulk_max": 4096, "segsort_padded_max": 131072,
     "segsort_extract_max_frac": 0.0, "radix256_min": 1 << 11,
-    "radix256_min_pairs": 1, "measured": True,
+    "radix256_min_pairs": 1, "segsort_tile_max": 8192, "measured": True,
 }
 
 

@@ -335,9 +335,10 @@ LAUNCH_COUNTERS = [
     ("mergesweep", "hyper_stage"), ("stitch", "compact_ops"),
     ("stitch", "expand_ops"), ("relocate", "relocate"),
     ("remote_exchange", "mask_arrivals"), ("radix256", "sort"),
-    ("radix256", "sort_pairs"),
+    ("radix256", "sort_pairs"), ("segtile", "sort"),
 ]
-_PACKAGE = {"remote_exchange": "gpusorting_tpu_torch.parallel"}
+_PACKAGE = {"remote_exchange": "gpusorting_tpu_torch.parallel",
+            "segtile": "gpusorting_tpu_torch.segsort"}
 
 
 def _wrapper(module, fn):
