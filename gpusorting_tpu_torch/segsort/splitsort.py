@@ -13,7 +13,9 @@ Every route sorts each segment stably and gives the same bits; the host
 picks one from the offsets, read to the host once per call (or once per
 `SegSortPlan`), as the reference reads its segInfo back
 (SplitSort.cuh:654-668):
-  fixed      — equal lengths L: one batched `torch.sort` over (S, L) rows;
+  fixed      — equal lengths L: one batched `torch.sort` over (S, L) rows
+               (span `fixed.sort`), the payload planes gathered by its
+               int64 permutation (span `fixed.gather`);
   window     — two overlapping window sorts keyed by (segment id, code),
                at offsets 0 and L/2 of windows L = 2 * ceil_pow2(max len):
                `stable3` (an int64 (sid, code) composite, stable, payloads
@@ -220,11 +222,15 @@ def _batched_segmented_sort(codes: torch.Tensor, payloads: tuple,
     k2 = codes.view(seg_count, L)
     if not payloads:
         # keys only on bare codes: the all-keys invariant holds
-        return flat_sort.sort_all_keys_unstable(k2, dim=1).reshape(-1), ()
-    sk, perm = torch.sort(k2, dim=1, stable=True)
-    return sk.reshape(-1), tuple(
-        torch.gather(p.view(seg_count, L), 1, perm).reshape(-1)
-        for p in payloads)
+        with span("fixed.sort"):
+            sk = flat_sort.sort_all_keys_unstable(k2, dim=1)
+        return sk.reshape(-1), ()
+    with span("fixed.sort"):
+        sk, perm = torch.sort(k2, dim=1, stable=True)
+    with span("fixed.gather"):
+        ps = tuple(torch.gather(p.view(seg_count, L), 1, perm).reshape(-1)
+                   for p in payloads)
+    return sk.reshape(-1), ps
 
 
 def _window_sid_bits(starts: np.ndarray, max_len: int) -> int:

@@ -17,6 +17,11 @@ Names (PERF.md §3 says which metric reads each):
                         ids and the key), `composite.sort` and
                         `composite.gather` (codes and payload planes read
                         out by the permutation)
+  fixed.<step>          the segmented fixed-length route's steps, inside
+                        `engine.fixed`: `fixed.sort` (the batched sort of
+                        the (S, L) rows of codes) and `fixed.gather` (the
+                        payload planes read out by its permutation; absent
+                        keys only)
   payload.<step>        a segmented sort's 64-bit payload: `split` into
                         (lo, hi) int32 planes, `join` back
   build.<source stem>   an `nvcc` build inside this process

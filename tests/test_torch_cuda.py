@@ -5,7 +5,8 @@ global_stage, compact_ops, expand_ops, merge_tail, hyper_stage, the
 segmented tile) against its plain version, their launch checks, the engines
 and public entry points through the kernels against flat torch.sort, the
 segmented sort (its tile route included) against the composite oracle,
-and the tuner's sweeps and
+its fixed-length route on a sampler's f32 rows against the plain per-row
+oracle (sortbench/plain_rows.py), and the tuner's sweeps and
 the console driver's bench line on the card.
 
 Every test here is marked `cuda` and skips where torch sees no card.  This
@@ -2071,3 +2072,43 @@ def test_segtile_wrapper_checks_on_card(cuda):
     before = segtile.sort.launches
     out, _ = segtile.sort(offs, k[:0])
     assert out.numel() == 0 and segtile.sort.launches == before
+
+
+# ---- the segmented fixed-length route: a sampler's rows of logits ----------
+
+
+def test_sampler_rows_match_the_plain_rows_on_card(cuda):
+    """8 rows of 129,280 f32 keys (a top-p sampler's logits over
+    DeepSeek-V3's vocabulary) with their u32 indices through
+    split_sort_pairs on the card's routing row: the fixed-length route,
+    `engine.fixed`, `fixed.sort` and `fixed.gather` once each, no tile or
+    composite span, and bit for bit with sortbench/plain_rows.py (one
+    stable sort of the int64 (row, code) key).  The keys hold NaNs of both
+    signs, both zeros, both infinities, denormals and repeated values."""
+    from gpusorting_tpu_torch.utils import trace
+    from sortbench import plain_rows
+
+    rows, L = 8, 129_280
+    n = rows * L
+    rng = np.random.default_rng(26)
+    bits = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    specials = np.array([0x7FC00000, 0xFFC00000, 0x80000000, 0, 0x7F800000,
+                         0xFF800000, 1, 0x80000001, 0x3F800000],
+                        dtype=np.uint32)
+    bits[::13] = specials[np.arange(bits[::13].shape[0]) % len(specials)]
+    bits[5::11] = bits[:5][np.arange(bits[5::11].shape[0]) % 5]
+    keys = torch.from_numpy(bits.view(np.int32)).view(torch.float32).to(cuda)
+    index = torch.arange(n, dtype=torch.int32, device=cuda).view(torch.uint32)
+    starts = np.arange(rows, dtype=np.int64) * L
+    offs = torch.from_numpy(starts.astype(np.int32)).to(cuda)
+    trace.reset()
+    gk, gv = gstt.split_sort_pairs(offs, keys, index, rows, n)
+    torch.cuda.synchronize()
+    marked = {k: v for k, v in trace.counts().items()
+              if v and k.startswith(("engine.", "fixed.", "composite.",
+                                     "payload."))}
+    assert marked == {"engine.fixed": 1, "fixed.sort": 1, "fixed.gather": 1}
+    wk, wv = plain_rows.sort_rows_blocked(keys, index, starts)
+    assert gk.dtype == torch.float32 and gv.dtype == torch.uint32
+    assert torch.equal(gk.view(torch.int32), wk.view(torch.int32))
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
