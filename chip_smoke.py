@@ -160,7 +160,8 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      stable torch.sort (prefix) with the sentinel and zero tail, and the
      masking launches asserted (the chunk count, or D); then times end to
      end beside the flat sort, and per step (sample and splitters, cell
-     counts, local sort, pack, exchange, both merge forms); the masking
+     counts, local sort, pack, exchange, the composite merge and
+     merge_runs, two launches a call, counted); the masking
      kernel timed at the path's shapes, the last chunk of the cap n + 2^20
      call (a 2^20-slot tail) and a 2^26-slot chunk with no tail, each as
      one call between events and as calls queued behind a spin (the card's
@@ -232,6 +233,14 @@ outside a checkout of the repository.  Phases, each fatal on failure:
      then the kernel's time beside its byte bound, the plain version, the
      oracle's composite, split_sort_pairs on the row and with the route
      off.
+
+ 25. the distributed sort's merge (parallel/dist_merge.py;
+     `dist_merge_phase`) at the 4-card cell's shape: the runs ranks 0 and
+     3 of 4 receive from 4 shards of 2^28 Zipf(1.3) pairs, built by the
+     path's own steps (rank 0's all of key 1), the kernel against its
+     plain version (`merge_plain` of every slot with the padding, the
+     parent's path), bit for bit; then the two timed in turns, the
+     kernel's two launches from a trace, beside the byte bound.
 
 Every JSON line carries the card's name and power limit as nvidia-smi gives
 them.  The line before the last lists the kernels; the last line is
@@ -711,6 +720,133 @@ def segtile_phase(dev, emit, n: int = 1 << 26) -> dict:
     return out
 
 
+def dist_merge_phase(dev, emit, n_local: int = N, d: int = 4,
+                     dests: tuple = (0, 3), rounds: int = 2) -> dict:
+    """Phase 25: the distributed sort's merge (parallel/dist_merge.py,
+    csrc/dist_merge.cu) at the `dist_u32_pairs.4chips` cell's shape on one
+    card: the runs destination ranks `dests` receive from d sources of
+    n_local Zipf(1.3) (u32, u32) pairs (keys in [1, 2^28 - 1], the payload
+    the global position), built by the path's own steps (the global
+    sample's splitters, cell counts, the stable local sort, each source's
+    cell for the destination packed in 4 chunks of the ladder's rung and
+    masked as the exchange masks it), so rc is a real call's.  Rank 0
+    receives the Zipf head (key 1 is a quarter of the keys), the last rank
+    the spread tail.  The kernel (two launches) against its plain version
+    (`merge_plain` of every slot then the padding, the parent's path), bit
+    for bit on all three planes and the fills; then, in turns, `rounds`
+    times, the kernel and the plain version, each the median of
+    its calls between CUDA events, and the kernel's two launches from a
+    torch.profiler trace, beside the byte bound.  Returns {dest: times}."""
+    import torch
+
+    import gpusorting_tpu_torch as gstt
+    from gpusorting_tpu_torch.core import codec
+    from gpusorting_tpu_torch.parallel import dist_merge, dist_sort
+    from gpusorting_tpu_torch.parallel import remote_exchange as rx
+    from gpusorting_tpu_torch.utils import timing
+    from sortbench import inputs
+
+    info = gstt.get_device_info(dev)
+    bw = info.hbm_gbps * 1e9
+    n = n_local * d
+    codes = [codec.encode_biased(inputs.zipf_keys(
+        n_local, SEED + 25, 1.3, (1 << 28) - 1, device=dev,
+        first=s * n_local)) for s in range(d)]
+    stride = max(1, n // (d * 32))
+    sample = torch.cat([c[(-(s * n_local)) % stride::stride]
+                        for s, c in enumerate(codes)])
+    sample_gidx = codec.wrap_int32(torch.arange(0, n, stride, device=dev))
+    spl_c, spl_g = dist_sort._splitters_from_sample(sample, sample_gidx, d)
+    counts = [dist_sort._cell_counts(c, dist_sort._gidx(s * n_local, n_local,
+                                                        dev), spl_c, spl_g, d)
+              for s, c in enumerate(codes)]
+    caps = dist_sort._cap_ladder(n, d, dist_sort._default_max_skew(
+        n, d, 3, info.hbm_bytes))
+    top = int(torch.stack(counts).max())
+    cap = caps[sum(top > c for c in caps[:-1])]
+    _require(top <= cap, f"phase 25: a cell of {top} over the top rung")
+    pad_to = d * caps[-1]
+    chunks, cw = dist_sort._chunking(cap, 4)
+    fills = (codec.SENTINEL, -1, 0)
+    recv = {r: [torch.empty(chunks, d, cw, dtype=torch.int32, device=dev)
+                for _ in fills] for r in dests}
+    for s in range(d):
+        gidx = dist_sort._gidx(s * n_local, n_local, dev)
+        ops = dist_sort._local_sort(codes[s], gidx, gidx)
+        codes[s] = None
+        starts = torch.cumsum(counts[s], 0, dtype=torch.int64) - counts[s]
+        pos = torch.arange(cap, device=dev)
+        for r in dests:
+            idx = (starts[r] + pos).clamp_(max=n_local - 1)
+            for o, x in enumerate(ops):
+                recv[r][o][:, s, :] = x[idx].view(chunks, cw)
+        del ops, gidx
+        torch.cuda.empty_cache()
+    out = {}
+    for r in dests:
+        rc = torch.stack([c[r] for c in counts]).contiguous()
+        for c in range(chunks):
+            rx.mask_arrivals([x[c] for x in recv[r]], rc, fills,
+                             col0=c * cw)
+        planes = recv[r]
+        total = int(rc.clamp(max=cap).sum())
+
+        def kernel():
+            return dist_merge.merge_runs(planes, rc, cap, pad_to, fills)
+
+        def plain_path():
+            m = dist_merge.merge_plain([x.view(-1) for x in planes])
+            return [torch.cat([x, x.new_full((pad_to - x.shape[0],), f)])
+                    for x, f in zip(m, fills)]
+
+        before = dist_merge.merge_runs.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        _require(dist_merge.merge_runs.launches - before == 2,
+                 "merge_runs: not two launches")
+        diffs = [int((g != w).sum()) for g, w in zip(got, plain_path())]
+        del got
+        torch.cuda.empty_cache()
+        _require(diffs == [0, 0, 0],
+                 f"merge_runs dest {r}: slots differing from merge_plain "
+                 f"with the padding {diffs}")
+        emit(phase="kernel_vs_plain", kernel="merge_runs", dest=r, d=d,
+             cap=cap, chunks=chunks, pad_to=pad_to, valid=total,
+             rc=rc.tolist(), differences=diffs, bit_exact=True)
+
+        turns = {"ms": [], "plain_ms": []}
+        for _ in range(rounds):
+            for key, fn, iters in (("ms", kernel, 10),
+                                   ("plain_ms", plain_path, 3)):
+                turns[key].append(statistics.median(timing.device_time_ms(
+                    fn, iters=iters, device=dev)))
+                torch.cuda.empty_cache()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kernel()
+            torch.cuda.synchronize()
+        per = _kernel_ms(prof, ("merge_partition", "merge_tiles"), 2)
+        rec = {"dest": r, "valid": total, "cap": cap, "pad_to": pad_to,
+               "turns": turns,
+               **{key: statistics.median(v) for key, v in turns.items()},
+               "partition_ms": per and per[0], "tiles_ms": per and per[1],
+               "device_ms": per and per[0] + per[1],
+               "bound_ms": (12 * total + 12 * pad_to) / bw * 1e3,
+               "bound_by": "bytes: 12 a valid element read, 12 an output "
+                           "slot written",
+               "library": "the plain version, the parent's path: "
+                          "merge_plain of every slot (CUB's onesweep over "
+                          "the int64 composite, the gather) then torch.cat "
+                          "of the fills"}
+        emit(phase="per_kernel", kernel="merge_runs", **rec)
+        out[r] = rec
+        del planes
+        recv[r] = None
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -729,7 +865,7 @@ def main() -> int:
                                           radix256, relocate,
                                           rangesweep as rs, rts, splitsweep,
                                           stitch)
-    from gpusorting_tpu_torch.parallel import dist_sort
+    from gpusorting_tpu_torch.parallel import dist_merge, dist_sort
     from gpusorting_tpu_torch.parallel import remote_exchange as rx
     from gpusorting_tpu_torch.parallel.launch import run_ranks
     from gpusorting_tpu_torch.segsort import segtile, splitsort
@@ -764,7 +900,7 @@ def main() -> int:
                rts.SOURCE, kernels.GLOBAL_HIST_SOURCE, radix16.SOURCE,
                bitonic.SOURCE, stitch.SOURCE, mergesweep.SOURCE, rx.SOURCE,
                rts.ROWS_SOURCE, rts.FIXUP_SOURCE, radix256.SOURCE,
-               segtile.SOURCE)
+               segtile.SOURCE, dist_merge.SOURCE)
     t0 = time.perf_counter()
     for src, secs in _nvcc.build_all(sources).items():
         emit(phase="build", seconds=secs,
@@ -2884,9 +3020,19 @@ def main() -> int:
 
     dist_runs = []
     rx.mask_arrivals.launches = 0
+    dist_merge.merge_runs.launches = 0
+
+    def merged(what, before):
+        """Each distributed_sort call merges through the kernel: two
+        launches."""
+        _require(dist_merge.merge_runs.launches - before == 2,
+                 f"{what}: {dist_merge.merge_runs.launches - before} "
+                 f"merge_runs launches, expected 2")
+
     for exchange in ("collective", "remote_dma"):
         for name, keys, values in cases17:
             before = rx.mask_arrivals.launches
+            merges = dist_merge.merge_runs.launches
             res = gstt.distributed_sort(keys, values, exchange=exchange)
             torch.cuda.synchronize()
             launched = rx.mask_arrivals.launches - before
@@ -2894,13 +3040,16 @@ def main() -> int:
                 dist_sort._chunking(res["cap"], 4)[0]
             _require(launched == expect, f"{name} {exchange}: {launched} "
                      f"mask_arrivals launches, expected {expect}")
+            merged(f"{name} {exchange}", merges)
             check17(name, keys, values, res, N, 0)
             dist_runs.append([name, exchange, launched, res["cap"]])
             del res
             free()
         small = 1 << 20
         before = rx.mask_arrivals.launches
+        merges = dist_merge.merge_runs.launches
         res = gstt.distributed_sort(u32, cap_elems=small, exchange=exchange)
+        merged(f"cap 2^20 {exchange}", merges)
         check17("u32_keys_cap_2^20", u32, None, res, small, N - small)
         dist_runs.append(["u32_keys_cap_2^20", exchange,
                           rx.mask_arrivals.launches - before, small])
@@ -2936,6 +3085,7 @@ def main() -> int:
 
         big_windows = []
         before = rx.mask_arrivals.launches
+        merges = dist_merge.merge_runs.launches
         dist_sort._exchange = replayed_exchange
         try:
             res = gstt.distributed_sort(u32, vals17, cap_elems=big,
@@ -2947,6 +3097,7 @@ def main() -> int:
         expect = 1 if exchange == "remote_dma" else 4
         _require(launched == expect, f"cap n + 2^20 {exchange}: {launched} "
                  f"mask_arrivals launches, expected {expect}")
+        merged(f"cap n + 2^20 {exchange}", merges)
         mask_err = max([mask_err] + [e for _, _, e in big_windows])
         _require(len(big_windows) == expect
                  and all(e == 0 for _, _, e in big_windows),
@@ -2959,9 +3110,10 @@ def main() -> int:
         del res
         free()
     mask_launches = rx.mask_arrivals.launches
+    merge_launches = dist_merge.merge_runs.launches
     emit(phase="distributed_path", n=N, ranks=1, backend="nccl",
          runs=dist_runs, mask_arrivals_launches=mask_launches,
-         bit_exact=True)
+         merge_runs_launches=merge_launches, bit_exact=True)
     # the kernel at the path's shape: the last collective chunk of the
     # cap n + 2^20 run, 3 planes of (1, (n + 2^20) / 4) at col0 = 3/4 of the
     # cell, whose last 2^20 slots are tail
@@ -3052,13 +3204,17 @@ def main() -> int:
         recv, _ = dist_sort._exchange(send, counts, grp, fills, exchange)
         del send
     flat17 = [r.view(-1) for r in recv]
-    del recv, sorted_ops
+    del sorted_ops
+    rc17 = counts.clamp(max=cap17).contiguous()
     for ops in (2, 3):
         steps[f"merge_{ops}_operands"] = median_ms(
-            lambda: dist_sort._merge(flat17[:ops]))
+            lambda: dist_merge.merge_plain(flat17[:ops]))
+        steps[f"merge_runs_{ops}_operands"] = median_ms(
+            lambda: dist_merge.merge_runs(recv[:ops], rc17, cap17, cap17,
+                                          fills[:ops]))
     emit(phase="per_step_distributed", what="pairs", n=N, ranks=1, cap=cap17,
          ms=steps)
-    del flat17, u32, vals17, maxc, cases17
+    del flat17, recv, u32, vals17, maxc, cases17
     dist.destroy_process_group()
     rendezvous.cleanup()
     free()
@@ -3581,6 +3737,10 @@ def main() -> int:
     seg_tile = segtile_phase(dev, emit)
     free()
 
+    # ---- phase 25: the distributed sort's merge at the 4-card cell's shape
+    merge_times = dist_merge_phase(dev, emit)
+    free()
+
     def stitch_row(kname, replaces):
         t = stitch_times[f"{kname}_1"]
         return {"name": kname, "route": "cuda",
@@ -3777,6 +3937,15 @@ def main() -> int:
                         "library_ms", "auto_ms", "composite_route_ms")},
          "bound_by": "bytes",
          "library": seg_tile["max4096_u32_pairs"]["library"],
+         "card": card},
+        {"name": "merge_runs", "route": "cuda",
+         "source": "gpusorting_tpu_torch/csrc/dist_merge.cu",
+         "replaces": None, "launches": merge_launches, "max_abs_err": 0,
+         **{f"{key}_dest{r}": rec[key] for r, rec in merge_times.items()
+            for key in ("ms", "device_ms", "partition_ms", "tiles_ms",
+                        "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library": "the plain version: merge_plain "
+         "(torch.sort of the int64 composite, the gather) then torch.cat",
          "card": card}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,10 @@ step, held bit for bit against it on the CPU:
   5. the cells ride the exchange (parallel/remote_exchange.py): chunked
      `all_to_all_single` ("collective") or the Pallas kernel's ring
      ("remote_dma"), each arrival masked by the CUDA kernel as it lands
-  6. each rank merges what it received with one local sort by (code,
-     global index); stability reduces to the global-index tiebreak
+  6. each rank merges what it received by (code, global index): JAX's one
+     local sort of every received slot; here the stable D-way merge of
+     the runs' valid prefixes, padded (parallel/dist_merge.py), which
+     gives the same bits
 
 Each rank holds its shard and calls `distributed_sort` with it (torch's
 SPMD idiom); the process group takes the place of JAX's Mesh and axis.  The
@@ -46,7 +48,8 @@ import torch.distributed as dist
 
 from ..core import codec
 from ..core.config import get_device_info
-from . import remote_exchange
+from ..utils.trace import span
+from . import dist_merge, remote_exchange
 
 _EXCHANGE_CHUNKS = 4
 _GIDX_SENTINEL = -1     # the u32 0xFFFFFFFF as int32
@@ -193,16 +196,6 @@ def _exchange(send, counts, group, fills, exchange: str):
     return remote_exchange.collective_exchange(send, counts, group, fills)
 
 
-def _merge(flat):
-    """Sort the received operands by (code, global index) as one int64
-    composite; payloads follow the permutation.  (A stable sort by code
-    alone would leave block s's masked tail, code SENTINEL with index
-    0xFFFFFFFF, ahead of block s+1's real max-code keys.)"""
-    comp, idx = torch.sort(_composite(flat[0], flat[1]))
-    gidx, codes = codec.split_wide(comp)
-    return [codes, gidx] + [p[idx] for p in flat[2:]]
-
-
 def _exchange_and_merge(sorted_ops, counts, cap: int, group, pad_to: int,
                         chunks: int, exchange: str):
     """Pack runs into cells, exchange, merge; pad to pad_to.
@@ -217,12 +210,9 @@ def _exchange_and_merge(sorted_ops, counts, cap: int, group, pad_to: int,
     send = _pack(sorted_ops, counts, cap, n_chunks)
     recv, rc = _exchange(send, counts, group, fills, exchange)
     del send
-    out = _merge([r.view(-1) for r in recv])
+    with span("dist.merge"):
+        out = dist_merge.merge_runs(recv, rc, cap, pad_to, fills)
     del recv
-    pad = pad_to - out[0].shape[0]
-    if pad:
-        out = [torch.cat([x, x.new_full((pad,), f)])
-               for x, f in zip(out, fills)]
     count = rc.clamp(max=cap).sum(dtype=torch.int64)
     return out, count, overflow.view(())
 

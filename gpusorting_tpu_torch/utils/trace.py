@@ -24,6 +24,9 @@ Names (PERF.md §3 says which metric reads each):
                         keys only)
   payload.<step>        a segmented sort's 64-bit payload: `split` into
                         (lo, hi) int32 planes, `join` back
+  dist.<step>           the distributed sort's steps: `dist.merge` (the
+                        received runs merged into the padded block,
+                        `parallel/dist_merge.merge_runs`)
   build.<source stem>   an `nvcc` build inside this process
   launch.<module>.<fn>  a kernel wrapper's `fn.launches` (`launch_counter`)
 

@@ -44,6 +44,8 @@ PINNED = {
     "gst_hyper_stage": "ppppiiqqqqip",
     "gst_local_stages": "pppppppppipiiiiip",
     "gst_mask_arrivals": "ppppqqqqiiiiipiiqqp",
+    "gst_merge_runs": "pppqqqqqqpppiiiipiqqqpp",
+    "gst_merge_tile": "",
     "gst_radix256_counts_words": "",
     "gst_radix256_pairs_partition": "",
     "gst_radix256_partition": "",

@@ -2,7 +2,8 @@
 kernel (relocate, tile_histogram4, exclusive_scan, downsweep and its row
 form downsweep_rows with edge_fixup, global_histogram, binning_pass and its digit-plane form, local_stages,
 global_stage, compact_ops, expand_ops, merge_tail, hyper_stage, the
-segmented tile) against its plain version, their launch checks, the engines
+segmented tile, the distributed sort's mask and merge) against its plain
+version, their launch checks, the engines
 and public entry points through the kernels against flat torch.sort, the
 segmented sort (its tile route included) against the composite oracle,
 its fixed-length route on a sampler's f32 rows against the plain per-row
@@ -29,10 +30,10 @@ from gpusorting_tpu_torch.ops import (_nvcc, bitonic, ffx, flat_sort,
                                       kernels, mergesweep, radix, radix16,
                                       relocate, rangesweep as rs, rts,
                                       splitsweep, stitch)
-from gpusorting_tpu_torch.parallel import dist_sort
+from gpusorting_tpu_torch.parallel import dist_merge, dist_sort
 from gpusorting_tpu_torch.parallel import remote_exchange as rx
 from gpusorting_tpu_torch.segsort import splitsort
-from gpusorting_tpu_torch.utils import validate
+from gpusorting_tpu_torch.utils import trace, validate
 
 pytestmark = pytest.mark.cuda
 
@@ -1317,6 +1318,129 @@ def test_mask_arrivals_checks_on_card(cuda):
     assert rx.mask_arrivals.launches == before
 
 
+def _received_runs(d, chunks, cw, num_ops, rc, keys, seed, ring, dev):
+    """What the exchange leaves a rank, on the card: per operand the
+    (chunks, D, cw) blocks, or with `ring` the (D, cap) rows of a stacked
+    (D, num_ops, cap) buffer (row stride num_ops * cap); run s sorted by
+    (code, global index), its indices above source s - 1's, the slots past
+    min(rc[s], cap) masked.  keys: "zipf" (Zipf(1.3) codes), "rand" (the
+    whole u32 range), "one_key" (every code 1), "max_code" (Zipf, the last
+    5 valid slots of each run the max code)."""
+    rng = np.random.default_rng(seed)
+    cap = chunks * cw
+    codes = np.empty((d, cap), np.uint32)
+    gidx = np.empty((d, cap), np.uint32)
+    for s in range(d):
+        if keys == "one_key":
+            c = np.ones(cap, np.uint32)
+        elif keys == "rand":
+            c = rng.integers(0, 2**32, cap, dtype=np.uint32)
+        else:
+            c = np.minimum(rng.zipf(1.3, cap), 0xFFFFFFF).astype(np.uint32)
+        if keys == "max_code":
+            c[max(0, min(rc[s], cap) - 5):] = 0xFFFFFFFF
+        g = (s * 2 * cap + rng.permutation(2 * cap)[:cap]).astype(np.uint32)
+        order = np.lexsort((g, c))
+        codes[s], gidx[s] = c[order], g[order]
+    ops = [codec.bias(torch.from_numpy(codes)),
+           torch.from_numpy(gidx.view(np.int32)),
+           torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (d, cap)
+                                         ).astype(np.int32))][:num_ops]
+    rc_t = torch.tensor(rc, dtype=torch.int32)
+    fills = (codec.SENTINEL, -1, 0)[:num_ops]
+    rx.mask_arrivals_plain(ops, rc_t, fills)
+    if ring:
+        stacked = torch.stack(ops, dim=1).to(dev)
+        planes = [stacked[:, o] for o in range(num_ops)]
+    else:
+        planes = [x.view(d, chunks, cw).transpose(0, 1).contiguous().to(dev)
+                  for x in ops]
+    return planes, rc_t.to(dev), fills
+
+
+# (d, chunks, cw, num_ops, rc, keys, pad_to / (d * cap), ring)
+_MERGE_CASES = {
+    "chunks4_pairs_pad2": (4, 4, 1024, 3, [0, 3000, 4096, 5000], "zipf", 2,
+                           False),
+    "chunks4_keys_pad1": (4, 4, 1024, 2, [4096, 1, 4095, 4097], "zipf", 1,
+                          False),
+    "chunks1_pairs_max_code": (4, 1, 8192, 3, [8192, 6000, 0, 9000],
+                               "max_code", 2, False),
+    "chunks1_keys_max_code": (3, 1, 5000, 2, [7, 5000, 6000], "max_code", 1,
+                              False),
+    "ring_rows_pairs": (4, 1, 6144, 3, [6144, 0, 3333, 7000], "max_code", 2,
+                        True),
+    "ring_rows_keys": (2, 1, 640, 2, [640, 100], "rand", 1, True),
+    "one_key_runs": (4, 4, 2048, 3, [8192, 8192, 7000, 9999], "one_key", 2,
+                     False),
+    "odd_chunk_width": (3, 3, 1000, 3, [2999, 1234, 3000], "rand", 2,
+                        False),
+    "one_source": (1, 4, 1024, 3, [3077], "zipf", 2, False),
+    "all_empty": (4, 4, 256, 3, [0, 0, 0, 0], "zipf", 2, False),
+    "d8_chunks4": (8, 4, 512, 3, [2048, 0, 1, 2047, 2048, 9999, 1024, 37],
+                   "max_code", 1, False),
+    "d4_cap_2^20": (4, 4, 1 << 18, 3, [(1 << 20) - 5, 1 << 20,
+                                       (1 << 20) + 9, 700_000], "zipf", 2,
+                    False),
+    "d4_cap_2^20_rand": (4, 4, 1 << 18, 3, [1 << 19, 1 << 20, 3, 999_999],
+                         "rand", 1, False),
+    "d16_chunks4": (16, 4, 256, 3, [1024, 0, 1023, 1025, 1, 1024, 500, 0,
+                                    1024, 7, 5000, 1024, 2, 333, 1024, 1000],
+                    "max_code", 2, False),
+    "d16_ring_rand": (16, 1, 768, 2, [(97 * s) % 900 for s in range(16)],
+                      "rand", 1, True),
+    "d32_chunks4": (32, 4, 128, 3, [(37 * s) % 600 for s in range(32)],
+                    "zipf", 2, False),
+    "d32_one_key": (32, 1, 512, 3, [512 - (s % 3) * 200 + (s % 5 == 4) * 99
+                                    for s in range(32)], "one_key", 1,
+                    False),
+}
+
+
+@pytest.mark.parametrize("name", list(_MERGE_CASES))
+def test_merge_runs_kernel_matches_plain(cuda, name):
+    """The distributed sort's merge kernel, two launches a call, bit for
+    bit against its plain version (the wrapper on the CPU: `merge_plain`
+    of the valid prefixes, then the fills) and the parent's merge of every
+    slot then the padding, on every plane and the fills; D from 1 to 32,
+    so every partition instantiation (R = 4, 8, 16, 32) runs."""
+    d, chunks, cw, num_ops, rc, keys, pad, ring = _MERGE_CASES[name]
+    planes, rc_t, fills = _received_runs(d, chunks, cw, num_ops, rc, keys,
+                                         len(name), ring, cuda)
+    cap = chunks * cw
+    pad_to = pad * d * cap
+    before = dist_merge.merge_runs.launches
+    got = dist_merge.merge_runs(planes, rc_t, cap, pad_to, fills)
+    torch.cuda.synchronize()
+    assert dist_merge.merge_runs.launches - before == 2
+    host = [p.cpu() for p in planes]
+    plain = dist_merge.merge_runs(host, rc_t.cpu(), cap, pad_to, fills)
+    parent = dist_merge.merge_plain([p.reshape(-1) for p in host])
+    parent = [torch.cat([x, x.new_full((pad_to - x.shape[0],), f)])
+              for x, f in zip(parent, fills)]
+    for g, w, v in zip(got, plain, parent):
+        assert g.shape == (pad_to,) and g.dtype == torch.int32
+        g = g.cpu()
+        assert torch.equal(g, w), name
+        assert torch.equal(g, v), name
+
+
+def test_merge_runs_checks_on_card(cuda):
+    planes, rc, fills = _received_runs(4, 1, 256, 3, [1, 2, 3, 4], "zipf", 1,
+                                       False, cuda)
+    with pytest.raises(ValueError, match="planes\\[0\\] on"):
+        dist_merge.merge_runs([planes[0].cpu()] + planes[1:], rc, 256, 1024,
+                              fills)
+    with pytest.raises(ValueError, match="unit stride"):
+        dist_merge.merge_runs([p[:, :, ::2] for p in planes], rc, 128, 512,
+                              fills)
+    wide = torch.zeros(1, 33, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="sources"):
+        dist_merge.merge_runs([wide, wide], torch.zeros(33, dtype=torch.int32,
+                                                        device=cuda), 128,
+                              33 * 128, fills[:2])
+
+
 @pytest.fixture
 def nccl_rank(cuda, tmp_path):
     """A one-rank NCCL process group in this process."""
@@ -1336,7 +1460,8 @@ def test_distributed_sort_one_rank_on_card(nccl_rank, exchange):
     """At one NCCL rank the distributed sort is the flat stable sort:
     keys, pairs, f32 keys with special values, all-equal pairs, max-code
     keys; the default ladder, and a fixed small cap that reports overflow
-    and the gather's retry."""
+    and the gather's retry.  Each call merges through the kernel (two
+    launches) inside one `dist.merge` span."""
     dev = nccl_rank
     n = 300_001
     u = prng.make_test_keys(n, 5, device=dev)
@@ -1355,11 +1480,14 @@ def test_distributed_sort_one_rank_on_card(nccl_rank, exchange):
         codes = codec.encode_biased(keys)
         want, perm = torch.sort(codes, stable=True)
         before = rx.mask_arrivals.launches
+        merges, spans = dist_merge.merge_runs.launches, trace.counts()
         res = dist_sort.distributed_sort(keys, values, exchange=exchange)
         torch.cuda.synchronize()
         assert rx.mask_arrivals.launches - before == (
             1 if exchange == "remote_dma" else
             dist_sort._chunking(res["cap"], 4)[0])
+        assert dist_merge.merge_runs.launches - merges == 2
+        assert trace.counts()["dist.merge"] - spans.get("dist.merge", 0) == 1
         assert int(res["count"]) == n and int(res["overflow"]) == 0
         got = codec.bias(res["codes"])
         assert torch.equal(got[:n], want)

@@ -26,8 +26,10 @@ import torch.distributed as dist
 
 from gpusorting_tpu_torch.core import prng
 from gpusorting_tpu_torch.core.config import EntropyPreset
-from gpusorting_tpu_torch.parallel import dist_sort, remote_exchange
+from gpusorting_tpu_torch.core import codec
+from gpusorting_tpu_torch.parallel import dist_merge, dist_sort, remote_exchange
 from gpusorting_tpu_torch.parallel.launch import run_ranks, step
+from gpusorting_tpu_torch.utils import trace
 
 D = 8
 SPAWN_TIMEOUT = 240.0
@@ -140,12 +142,17 @@ def _run_cases(rank, world, cases):
         step(f"case {name}")
         k = _shard(keys, rank, world)
         v = None if values is None else _shard(values, rank, world)
+        before = trace.counts()
         res = dist_sort.distributed_sort(k, v, **kw)
+        after = trace.counts()
         rec = {f: res[f].view(torch.int32).numpy().view(np.uint32)
                for f in ("codes", "global_index", "payload_bits")
                if res[f] is not None}
         rec.update(count=int(res["count"]), overflow=int(res["overflow"]),
-                   cap=res["cap"], n=res["n"])
+                   cap=res["cap"], n=res["n"],
+                   merge_counts={key: after.get(key, 0) - before.get(key, 0)
+                                 for key in ("dist.merge",
+                                             "launch.dist_merge.merge_runs")})
         if gather:
             got, ovf = dist_sort.distributed_sort_gather(k, v, **kw)
             if v is not None:
@@ -225,6 +232,15 @@ def test_distributed_sort_matches_jax_per_rank(port, cpu_mesh, name):
     if name.startswith("exact_cap") or name in ("uniform", "presorted"):
         assert int(overflow[0]) == 0
         assert int(counts.sum()) == keys.shape[0]
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_distributed_sort_merges_once_a_call(port, name):
+    """Each call opens `dist.merge` once on every rank, and a CPU rank
+    takes the plain merge: no kernel launch."""
+    for r in range(D):
+        assert port[r][name]["merge_counts"] == {
+            "dist.merge": 1, "launch.dist_merge.merge_runs": 0}
 
 
 _GATHERED = [n for n, c in CASES.items() if c[3]]
@@ -401,10 +417,143 @@ def test_merges_agree():
     flat = [torch.from_numpy(x) for x in (codes, gidx, pay)]
     order = np.lexsort((gidx.view(np.uint32), codes))
     for num_ops in (2, 3):
-        got = dist_sort._merge(flat[:num_ops])
+        got = dist_merge.merge_plain(flat[:num_ops])
         assert len(got) == num_ops
         for x, w in zip(got, (codes, gidx, pay)):
             np.testing.assert_array_equal(x.numpy(), w[order])
+
+
+def received_runs(d, chunks, cw, num_ops, rc, keys, seed, ring=False):
+    """What the exchange leaves a rank: per operand the (chunks, D, cw)
+    blocks (with `ring`, (D, cap) rows of a stacked (D, num_ops, cap)
+    buffer, row stride num_ops * cap), run s sorted by (code, global
+    index), its global indices above every one of source s - 1, the slots
+    past min(rc[s], cap) masked with the fills; rc as an int32 tensor.
+    `keys`: "zipf" (Zipf(1.3) codes), "one_key" (every code 1),
+    "max_code" (Zipf codes, the last 5 valid slots of each run the max
+    code, a real key, so every run boundary holds max-code keys beside
+    the masked tail's)."""
+    rng = np.random.default_rng(seed)
+    cap = chunks * cw
+    codes = np.empty((d, cap), np.uint32)
+    gidx = np.empty((d, cap), np.uint32)
+    for s in range(d):
+        if keys == "one_key":
+            c = np.ones(cap, np.uint32)
+        else:
+            c = np.minimum(rng.zipf(1.3, cap), 0xFFFFFFF).astype(np.uint32)
+        if keys == "max_code":
+            c[max(0, min(rc[s], cap) - 5):] = 0xFFFFFFFF
+        g = (s * 4 * cap + rng.permutation(4 * cap)[:cap]).astype(np.uint32)
+        order = np.lexsort((g, c))
+        codes[s], gidx[s] = c[order], g[order]
+    pay = rng.integers(-2**31, 2**31 - 1, (d, cap)).astype(np.int32)
+    ops = [codec.bias(torch.from_numpy(codes)),
+           torch.from_numpy(gidx.view(np.int32)), torch.from_numpy(pay)]
+    ops = ops[:num_ops]
+    rc_t = torch.tensor(rc, dtype=torch.int32)
+    fills = (codec.SENTINEL, -1, 0)[:num_ops]
+    remote_exchange.mask_arrivals_plain(ops, rc_t, fills)
+    if ring:
+        stacked = torch.stack(ops, dim=1)           # (D, num_ops, cap)
+        return [stacked[:, o] for o in range(num_ops)], rc_t, fills
+    return [x.view(d, chunks, cw).transpose(0, 1).contiguous()
+            for x in ops], rc_t, fills
+
+
+def merge_then_pad(planes, pad_to, fills):
+    """The parent's merge: `merge_plain` of every slot, masked tails
+    included, then each plane padded to pad_to by a concatenation."""
+    out = dist_merge.merge_plain([p.reshape(-1) for p in planes])
+    return [torch.cat([x, x.new_full((pad_to - x.shape[0],), f)])
+            for x, f in zip(out, fills)]
+
+
+# name -> (d, chunks, cw, num_ops, rc, keys, pad_to / (d * cap), ring)
+MERGE_CASES = {
+    "chunks4_pairs_pad2": (4, 4, 128, 3, [0, 300, 512, 700], "zipf", 2,
+                           False),
+    "chunks4_keys_pad1": (4, 4, 128, 2, [512, 1, 511, 513], "zipf", 1,
+                          False),
+    "chunks1_pairs_max_code": (4, 1, 2048, 3, [2048, 1500, 0, 4000],
+                               "max_code", 2, False),
+    "chunks1_keys_max_code": (3, 1, 512, 2, [7, 512, 600], "max_code", 1,
+                              False),
+    "ring_rows_pairs": (4, 1, 1024, 3, [1024, 0, 333, 2000], "max_code", 2,
+                        True),
+    "ring_rows_keys": (2, 1, 640, 2, [640, 100], "zipf", 1, True),
+    "one_key_runs": (4, 4, 256, 3, [1024, 1024, 900, 5000], "one_key", 2,
+                     False),
+    "one_source": (1, 4, 32, 3, [77], "zipf", 2, False),
+    "all_empty": (4, 4, 32, 3, [0, 0, 0, 0], "zipf", 2, False),
+    "d8_chunks4": (8, 4, 64, 3, [256, 0, 1, 255, 256, 999, 128, 37],
+                   "max_code", 1, False),
+    "d16_chunks4": (16, 4, 16, 3, [64, 0, 63, 65, 1, 64, 30, 0, 64, 7, 100,
+                                   64, 2, 33, 64, 63], "max_code", 2, False),
+    "d32_keys": (32, 1, 40, 2, [(7 * s) % 45 for s in range(32)], "zipf", 1,
+                 False),
+}
+
+
+@pytest.mark.parametrize("name", list(MERGE_CASES))
+def test_merge_runs_plain_is_merge_then_pad(name):
+    """The wrapper on CPU tensors (its plain version, no launch) gives the
+    parent's `_merge` and padding bit for bit: chunked and ring layouts,
+    2 and 3 operands, pad_to D * cap and twice it, counts of 0, below,
+    at and above the cell, max-code keys at every run boundary, runs of
+    one key."""
+    d, chunks, cw, num_ops, rc, keys, pad, ring = MERGE_CASES[name]
+    planes, rc_t, fills = received_runs(d, chunks, cw, num_ops, rc, keys,
+                                        seed=len(name), ring=ring)
+    cap = chunks * cw
+    pad_to = pad * d * cap
+    before = dist_merge.merge_runs.launches
+    got = dist_merge.merge_runs(planes, rc_t, cap, pad_to, fills)
+    assert dist_merge.merge_runs.launches == before
+    want = merge_then_pad(planes, pad_to, fills)
+    assert len(got) == num_ops
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (pad_to,)
+        assert torch.equal(g, w)
+    total = sum(min(max(r, 0), cap) for r in rc)
+    assert bool((got[0][total:] == codec.SENTINEL).all())
+
+
+def test_merge_runs_reads_only_the_valid_prefix():
+    """Slots past a run's valid prefix are never read: garbage there (no
+    mask) gives the masked runs' result."""
+    planes, rc_t, fills = received_runs(4, 4, 64, 3, [10, 256, 0, 200],
+                                        "zipf", seed=3)
+    want = dist_merge.merge_runs(planes, rc_t, 256, 2048, fills)
+    pos = torch.arange(256).view(4, 64)      # (chunk, column) -> position
+    dirty = [p.clone() for p in planes]
+    for p in dirty:
+        for s, n in enumerate([10, 256, 0, 200]):
+            p[:, s][pos >= n] = -12345
+    got = dist_merge.merge_runs(dirty, rc_t, 256, 2048, fills)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_merge_runs_refuses_bad_operands():
+    planes, rc_t, fills = received_runs(4, 4, 32, 3, [1, 2, 3, 4], "zipf",
+                                        seed=4)
+    with pytest.raises(ValueError, match="pad_to"):
+        dist_merge.merge_runs(planes, rc_t, 128, 511, fills)
+    with pytest.raises(ValueError, match="runs of cap"):
+        dist_merge.merge_runs(planes, rc_t, 256, 1024, fills)
+    with pytest.raises(ValueError, match="fills"):
+        dist_merge.merge_runs(planes, rc_t, 128, 512, fills[:2])
+    with pytest.raises(TypeError, match="rc"):
+        dist_merge.merge_runs(planes, rc_t.long(), 128, 512, fills)
+    with pytest.raises(ValueError, match="planes\\[1\\]"):
+        dist_merge.merge_runs([planes[0], planes[1][:, :, :16]], rc_t, 128,
+                              512, fills[:2])
+    with pytest.raises(ValueError, match="2-3 planes"):
+        dist_merge.merge_runs(planes[:1], rc_t, 128, 512, fills[:1])
+    # only an all-CPU call takes the plain merge
+    with pytest.raises(ValueError, match="planes\\[2\\] on meta"):
+        dist_merge.merge_runs(planes[:2] + [planes[2].to("meta")], rc_t, 128,
+                              512, fills)
 
 
 def test_fills_are_the_carriers():

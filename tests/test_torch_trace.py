@@ -336,8 +336,10 @@ LAUNCH_COUNTERS = [
     ("stitch", "expand_ops"), ("relocate", "relocate"),
     ("remote_exchange", "mask_arrivals"), ("radix256", "sort"),
     ("radix256", "sort_pairs"), ("segtile", "sort"),
+    ("dist_merge", "merge_runs"),
 ]
 _PACKAGE = {"remote_exchange": "gpusorting_tpu_torch.parallel",
+            "dist_merge": "gpusorting_tpu_torch.parallel",
             "segtile": "gpusorting_tpu_torch.segsort"}
 
 
